@@ -15,10 +15,18 @@ the port's main path at logN=16 on the Go fork's modulus chain:
     kw 7, 10 logits, seeded weights) against numpy to 2e-3, same argmax.
 
 Every kernel's launch counter is zeroed just before the main path and
-must be nonzero after it, with no plain-version call.  Any failed check
-raises and the script exits nonzero.  The last lines are a JSON object
-of per-kernel results, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Without CUDA it fails at once.
+must be nonzero after it, with no plain-version call.  Beside each
+kernel's time stands its bound: the larger of its bytes (each input read
+once, each output written once) over 3.35 TB/s and its 32-bit integer
+instructions (counted from the compiled arithmetic by
+``optimal_conv_tpu_torch.utils.kernel_info``) over 64 lanes per SM per
+clock at the card's maximum SM clock.  After the main path one warm
+conv at 16²×256 is split into host-side kernel encoding and the
+device-side ``conv_then_pack``, whose kernels are listed by
+``torch.profiler``.  Any failed check raises and the script exits
+nonzero.  The last lines are a JSON object of per-kernel results, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Without CUDA it fails at once.
 """
 
 from __future__ import annotations
@@ -40,11 +48,19 @@ from optimal_conv_tpu_torch.core import modmath as mm
 from optimal_conv_tpu_torch.core.ntt import NttContext, _ntt_fwd, _ntt_inv
 from optimal_conv_tpu_torch.models.resnet import (ResNetConfig,
                                                   encrypt_fc_input, fc_conv)
-from optimal_conv_tpu_torch.utils.timing import cuda_ms
+from optimal_conv_tpu_torch.ops import conv as convops
+from optimal_conv_tpu_torch.utils import kernel_info
+from optimal_conv_tpu_torch.utils.timing import cuda_ms, cuda_ms_cold
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "ref_conv_3_0_1.json")
 STATS = [mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV]
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+INT32_LANES_PER_SM = 64        # Hopper architecture white paper
+# 32-bit integer instructions of one forward / inverse butterfly and one
+# Montgomery product as nvcc 12 compiles csrc/modarith.cuh for sm_90a
+# (kernel_info on an H100 machine); used only where cuobjdump is missing
+INT32_FALLBACK = {"fwd": 39, "inv": 35, "mul": 33}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -57,6 +73,46 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+class Card:
+    """The card's rates for the bounds, and the arithmetic's instruction
+    counts from this build."""
+
+    def __init__(self, dev):
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60,
+                             check=True)
+        self.sm_hz = float(out.stdout.strip().splitlines()[0]) * 1e6
+        self.sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.int32_per_s = INT32_LANES_PER_SM * self.sms * self.sm_hz
+        try:
+            counts = kernel_info.butterfly_instructions()
+            self.int32 = {k: v["int32"] for k, v in counts.items()}
+            self.int32_from = "SASS of this build"
+        except (RuntimeError, OSError, subprocess.CalledProcessError) as e:
+            self.int32 = dict(INT32_FALLBACK)
+            self.int32_from = f"recorded counts ({type(e).__name__}: {e})"
+        print(f"bounds: {HBM_BYTES_PER_S / 1e12} TB/s; {self.sms} SMs x "
+              f"{INT32_LANES_PER_SM} int32 lanes x {self.sm_hz / 1e9:.3f} GHz = "
+              f"{self.int32_per_s / 1e12:.2f} T int32/s; instructions "
+              f"{self.int32} from {self.int32_from}")
+
+    def bound(self, n_bytes: float, n_int32: float) -> dict:
+        """bound_ms = the larger of bytes and 32-bit integer operations
+        over the card's rates, and which of the two it is."""
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        o_ms = n_int32 / self.int32_per_s * 1e3
+        return dict(bound_ms=max(b_ms, o_ms), bytes_ms=b_ms, int32_ms=o_ms,
+                    bound_by="bytes" if b_ms >= o_ms else "operations",
+                    operation_type="int32")
+
+    def ntt_bound(self, rows: int, limbs: int, log_n: int, inverse: bool):
+        n = 1 << log_n
+        n_bytes = 8 * (2 * rows * n + limbs * n)       # in, out, twiddles
+        ops = rows * log_n * (n // 2) * self.int32["inv" if inverse else "fwd"]
+        return self.bound(n_bytes, ops)
 
 
 def residues(mods, lead, n, rng, dev):
@@ -72,7 +128,7 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max().item())
 
 
-def check_mont(dev, p, rng):
+def check_mont(dev, p, rng, card):
     """Phase 2: K1 against its plain version on the card."""
     n = p.n
     qs = p.q_moduli
@@ -99,57 +155,128 @@ def check_mont(dev, p, rng):
     pls = residues(qs[:2], (256,), n, rng, dev)
     ms = cuda_ms(lambda: mm.mont_mul(ct, pls, q01, qi01), dev)
     plain_ms = cuda_ms(lambda: mm.mont_mul_plain(ct, pls, q01, qi01), dev)
+    out_elems = 256 * 2 * n
+    bnd = card.bound(8 * (ct.numel() + pls.numel() + out_elems),
+                     out_elems * card.int32["mul"])
     print(f"K1 mont_mul: equal to plain; [1,2,N]x[256,2,N] kernel {ms:.4f} ms,"
-          f" plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                shape="[1,2,65536] x [256,2,65536]")
+          f" plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+          f"{bnd['bound_by']} (bytes {bnd['bytes_ms']:.4f}, int32 "
+          f"{bnd['int32_ms']:.4f})")
+    # no PyTorch call computes a Montgomery product mod a 62-bit prime
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                shape="[1,2,65536] x [256,2,65536]", **bnd)
 
 
-def check_ntt(dev, p, rng):
+def _plain_ntt(ctx, x, idx, inverse):
+    q, qinv = ctx.tabs(idx)[:2]
+    psi, ipsi, ninv = ctx.plain_tabs(idx)
+    if inverse:
+        return _ntt_inv(x, ipsi, ninv, q, qinv, ctx.log_n)
+    return _ntt_fwd(x, psi, q, qinv, ctx.log_n)
+
+
+def _both_ways(ctx, a, idx, what, err):
+    """ntt and intt of `a` against the plain versions, and the round trip."""
+    f = ctx.ntt(a, idx)
+    want_f = _plain_ntt(ctx, a, idx, False)
+    check(torch.equal(f, want_f), f"NTT differs from plain on {what}")
+    back = ctx.intt(f, idx)
+    want_b = _plain_ntt(ctx, f, idx, True)
+    check(torch.equal(back, want_b), f"iNTT differs from plain on {what}")
+    check(torch.equal(back, a), f"intt(ntt(a)) != a on {what}")
+    err[0] = max(err[0], max_err(f, want_f))
+    err[1] = max(err[1], max_err(back, want_b))
+
+
+def _device_kernels(fn, dev):
+    """{kernel name: launches} of the device work that fn() enqueues."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            out[ev.name] = out.get(ev.name, 0) + 1
+    return out
+
+
+def check_ntt(dev, p, rng, card):
     """Phase 3: K2/K3 against their plain versions on the card."""
     n, log_n = p.n, p.log_n
     ctx = NttContext(p.moduli, log_n, dev)
-
-    def plain(x, idx, inverse):
-        q, qinv = ctx.tabs(idx)[:2]
-        psi, ipsi, ninv = ctx.plain_tabs(idx)
-        if inverse:
-            return _ntt_inv(x, ipsi, ninv, q, qinv, log_n)
-        return _ntt_fwd(x, psi, q, qinv, log_n)
-
     err = [0.0, 0.0]
     qp = p.qp_idx(0)
     cases = [(tuple(range(len(p.moduli))), ()), (qp, (8,)), ((0,), ()),
              ((1,), ())]
     for idx, lead in cases:
         a = residues([p.moduli[i] for i in idx], lead, n, rng, dev)
-        f = ctx.ntt(a, idx)
-        want_f = plain(a, idx, False)
-        check(torch.equal(f, want_f), f"NTT differs from plain on {idx} {lead}")
-        back = ctx.intt(f, idx)
-        want_b = plain(f, idx, True)
-        check(torch.equal(back, want_b),
-              f"iNTT differs from plain on {idx} {lead}")
-        check(torch.equal(back, a), f"intt(ntt(a)) != a on {idx} {lead}")
-        err = [max(err[0], max_err(f, want_f)),
-               max(err[1], max_err(back, want_b))]
-    # timed at the main path's largest transform: the key-switch digits of
-    # the first pack stage of conv 3 3 (128 ciphertexts × 6 limbs of QP)
-    x = residues([p.moduli[i] for i in qp], (128, 1), n, rng, dev)
-    out = {}
-    for k, inverse in enumerate((False, True)):
+        _both_ways(ctx, a, idx, f"{idx} {lead}", err)
+    # a view read in place through its strides: the P rows of two QP
+    # accumulators, as mod-down passes them
+    nq = len(qp) - len(p.p_idx())
+    acc = residues([p.moduli[i] for i in qp], (2,), n, rng, dev)
+    keep = acc.clone()
+    view = acc[..., nq:, :]
+    check(not view.is_contiguous() and ntt_kernel._row_strides(view)
+          == (len(qp) * n, n), "the P-row slice should be read in place")
+    _both_ways(ctx, view, qp[nq:], "the strided P rows", err)
+    check(torch.equal(acc, keep), "the transform wrote into its input")
+    # every branch of the plan: one launch (k mod 3 = 0, 1, 2, and the
+    # largest ring that fits a block) and two launches with a short
+    # column pass.  The chain's primes are 1 mod 2^17, so they carry
+    # every smaller ring.
+    for small in (3, 8, 9, 11, 13, 14, 15):
+        sctx = NttContext(p.moduli[:6], small, dev)
+        a = residues(p.moduli[:6], (3,), 1 << small, rng, dev)
+        _both_ways(sctx, a, tuple(range(6)), f"logN {small}", err)
+    # one transform is at most two launches and nothing else
+    x2 = residues(p.moduli[:2], (), n, rng, dev)
+    for inverse in (False, True):
         fn = ctx.intt if inverse else ctx.ntt
-        ms = cuda_ms(lambda: fn(x, qp), dev, iters=10)
-        plain_ms = cuda_ms(lambda: plain(x, qp, inverse), dev, iters=3,
-                           warmup=1)
-        name = "ntt_inv" if inverse else "ntt_fwd"
-        print(f"K{2 + k} {name}: equal to plain; [128,1,6,N] kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out[name] = dict(max_abs_err=err[k], ms=ms, plain_ms=plain_ms,
-                         shape="[128,1,6,65536]")
-    x33 = residues(p.moduli, (), n, rng, dev)
-    ms33 = cuda_ms(lambda: ctx.ntt(x33), dev)
-    print(f"K2 ntt_fwd [33,N] kernel {ms33:.4f} ms")
+        names = _device_kernels(lambda: fn(x2, (0, 1)), dev)
+        print(f"device work of one {'inverse ' if inverse else ''}transform "
+              f"[2,N]: {names}")
+        check(names and all("ntt_pass" in k for k in names)
+              and sum(names.values()) <= 2,
+              f"one transform should be at most two ntt_pass launches: {names}")
+    # timed at three main-path shapes: the key-switch digits of the first
+    # pack stage of conv 3 3 (128 ciphertexts x 6 limbs of QP), one kernel
+    # plaintext ([2,N], Encoder.encode_coeffs) and all 33 limbs.  The two
+    # small ones are timed with a cold L2, as their callers find it.
+    shapes = [("[128,1,6,65536]", qp, (128, 1), False),
+              ("[2,65536]", (0, 1), (), True),
+              ("[33,65536]", tuple(range(len(p.moduli))), (), True)]
+    out = {"ntt_fwd": {}, "ntt_inv": {}}
+    for shape, idx, lead, cold in shapes:
+        x = residues([p.moduli[i] for i in idx], lead, n, rng, dev)
+        rows = x.numel() // n
+        for k, inverse in enumerate((False, True)):
+            name = "ntt_inv" if inverse else "ntt_fwd"
+            fn = ctx.intt if inverse else ctx.ntt
+            if cold:
+                ms = cuda_ms_cold(lambda: fn(x, idx), dev, iters=30, warmup=20)
+                warm = cuda_ms(lambda: fn(x, idx), dev, iters=100,
+                               warmup=20)
+            else:
+                ms = warm = cuda_ms(lambda: fn(x, idx), dev, iters=10)
+            bnd = card.ntt_bound(rows, len(idx), log_n, inverse)
+            row = dict(shape=shape, ms=ms, warm_l2_ms=warm, **bnd)
+            print(f"K{2 + k} {name} {shape}: {ms:.4f} ms"
+                  f"{' (cold L2; warm %.4f)' % warm if cold else ''}, bound "
+                  f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (bytes "
+                  f"{bnd['bytes_ms']:.4f}, int32 {bnd['int32_ms']:.4f})")
+            if not out[name]:
+                plain_ms = cuda_ms(lambda: _plain_ntt(ctx, x, idx, inverse),
+                                   dev, iters=3, warmup=1)
+                print(f"K{2 + k} {name} {shape}: plain {plain_ms:.4f} ms")
+                # no PyTorch call computes a modular NTT
+                out[name] = dict(max_abs_err=err[k], plain_ms=plain_ms,
+                                 library_ms=None, shapes=[], **row)
+            out[name]["shapes"].append(row)
     return out
 
 
@@ -215,6 +342,69 @@ def main_path(dev, card):
     return lat
 
 
+def where_time_goes(dev, card):
+    """One warm conv 3 3 (16^2 x 256) split into host-side kernel encoding
+    and the device-side conv_then_pack, with the device kernels of one
+    conv_then_pack by name.  Runs after the launch counts are read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p = boot_params(16)
+    ctx = CkksContext(p, dev, seed=0)
+    rng = np.random.default_rng(3)
+    in_batch, in_wid = cli.BATCHS[3], cli.WIDTHS[3]
+    raw, ker, bn_a, bn_b, _ = cli.conv_inputs(3, 3, 0, rng)
+    inp = convops.prep_input(raw, in_wid - 1, in_wid, p.n, 1)
+    ct = ctx.encrypt(ctx.encoder.encode_coeffs(inp, p.scale, convops.ECD_LEVEL))
+    bias = ctx.encoder.encode_coeffs(np.zeros(p.n), float(1 << 30), 0,
+                                     mont=False)
+
+    def prep():
+        return convops.prep_ker(ctx, ker, bn_a, in_wid, 3, in_batch, in_batch,
+                                1, False)
+
+    def pack(pl):
+        return convops.conv_then_pack(ctx, ct, pl, in_batch, 1,
+                                      float(1 << 30), bias_pt=bias)
+
+    pack(prep())                           # keys generated, caches warm
+    prep_ms, pack_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        pl = prep()
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        pack(pl)
+        torch.cuda.synchronize(dev)
+        prep_ms.append((t1 - t0) * 1e3)
+        pack_ms.append((time.perf_counter() - t1) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pack(pl)
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    groups: dict = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = ("ntt_pass<inverse>" if "ntt_pass<true>" in ev.name
+               or "ntt_pass<(bool)1>" in ev.name else
+               "ntt_pass<forward>" if "ntt_pass" in ev.name else
+               "mont_mul_kernel" if "mont_mul" in ev.name else "torch kernels")
+        g = groups.setdefault(key, [0, 0.0])
+        g[0] += 1
+        g[1] += getattr(ev, "device_time", None) or getattr(ev, "cuda_time", 0)
+    for g in groups.values():
+        g[1] /= 1e3                        # microseconds to milliseconds
+    busy = sum(g[1] for g in groups.values())
+    print(f"conv 3 3 warm, {card}: prep_ker ms {[round(t, 1) for t in prep_ms]}"
+          f", conv_then_pack ms {[round(t, 1) for t in pack_ms]}")
+    print(f"conv_then_pack under the profiler: wall {wall:.2f} ms, device "
+          f"kernels {busy:.3f} ms (busy {100 * busy / wall:.1f}%): "
+          + json.dumps({k: dict(launches=g[0], ms=round(g[1], 3))
+                        for k, g in groups.items()}))
+
+
 def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
@@ -228,11 +418,12 @@ def main() -> int:
     cuda_lib.lib()
     print(f"kernel build + load {time.perf_counter() - t0:.2f} s "
           f"(nvcc {cuda_lib.build_seconds} s)")
+    rates = Card(dev)
 
     p = boot_params(16)
     rng = np.random.default_rng(2024)
-    k1 = check_mont(dev, p, rng)
-    k23 = check_ntt(dev, p, rng)
+    k1 = check_mont(dev, p, rng, rates)
+    k23 = check_ntt(dev, p, rng, rates)
 
     for s in STATS:
         s.reset()
@@ -240,23 +431,29 @@ def main() -> int:
     lat = main_path(dev, card)
     torch.cuda.synchronize(dev)
     counts = {s.name: (s.launches, s.plain_calls) for s in STATS}
+    by_rows = {s.name: {str(r): c for r, c in sorted(s.by_rows.items())}
+               for s in STATS}
     print(f"main path launches / plain calls: {counts}")
+    print(f"main path launches by rows of the call: {json.dumps(by_rows)}")
     print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
           f" GiB; latencies ms {json.dumps(lat)}")
     for name, (launches, plain) in counts.items():
         check(launches > 0, f"{name}: no launch on the main path")
         check(plain == 0, f"{name}: plain version ran on the main path")
+    where_time_goes(dev, card)
 
     src = "optimal_conv_tpu_torch/csrc/"
     rows = [dict(name="mont_mul", route="cuda", source=src + "mont_mul.cu",
-                 replaces="optimal_conv_tpu/core/pallas_mod.py:161",
-                 launches=counts["mont_mul"][0], **k1),
+                 replaces="optimal_conv_tpu/core/pallas_mod.py:161", **k1),
             dict(name="ntt_fwd", route="cuda", source=src + "ntt.cu",
                  replaces="optimal_conv_tpu/core/pallas_ntt.py:131",
-                 launches=counts["ntt_fwd"][0], **k23["ntt_fwd"]),
+                 **k23["ntt_fwd"]),
             dict(name="ntt_inv", route="cuda", source=src + "ntt.cu",
                  replaces="optimal_conv_tpu/core/pallas_ntt.py:199",
-                 launches=counts["ntt_inv"][0], **k23["ntt_inv"])]
+                 **k23["ntt_inv"])]
+    for row in rows:
+        row["launches"] = counts[row["name"]][0]
+        row["launches_by_rows"] = by_rows[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ nonzero code.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -30,17 +31,23 @@ build_seconds: float | None = None     # wall time of this process's build
 
 
 class KernelStats:
-    """Per-kernel counters: launches of the CUDA kernel by its wrapper,
-    and calls of its plain PyTorch version (any device)."""
+    """Per-kernel counters: launches of the CUDA kernel by its wrapper
+    (in all, and by the number of rows of the call), and calls of its
+    plain PyTorch version (any device)."""
 
     def __init__(self, name: str):
         self.name = name
-        self.launches = 0
-        self.plain_calls = 0
+        self.reset()
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
+        self.by_rows: collections.Counter = collections.Counter()
+
+    def launched(self, rows: int) -> None:
+        """Called by the wrapper right after it launched its kernel."""
+        self.launches += 1
+        self.by_rows[rows] += 1
 
 
 def _nvcc() -> str:
@@ -84,7 +91,9 @@ def _bind(dll: ctypes.CDLL) -> ctypes.CDLL:
     dll.optconv_mont_mul.argtypes = [p, p, p, p, p, i64, i64, i64, i64,
                                      i32, p, p, p, p, p, p]
     dll.optconv_mont_mul.restype = i32
-    dll.optconv_ntt.argtypes = [p, p, p, p, p, p, i64, i32, i32, p]
+    # in, out, row_limb, q, qinv, tw, ninv; rows, l, batch and limb stride;
+    # log_n, inverse, n_pass; two passes of six plan integers; stream
+    dll.optconv_ntt.argtypes = [p] * 7 + [i64] * 4 + [i32] * 15 + [p]
     dll.optconv_ntt.restype = i32
     return dll
 

@@ -85,5 +85,5 @@ def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor,
             ops[2].data_ptr(), ops[3].data_ptr(), rows, n, cols[0], cols[1],
             len(dims), size, *strides, stream)
     cuda_lib.check(code, "mont_mul kernel")
-    STATS.launches += 1
+    STATS.launched(rows)
     return out

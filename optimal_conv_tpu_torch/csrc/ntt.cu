@@ -6,25 +6,61 @@
 // (core/ntt.py _ntt_fwd/_ntt_inv): forward Cooley-Tukey with the psi
 // twist merged into the twiddles, natural order in, bit-reversed out;
 // inverse Gentleman-Sande, bit-reversed in, natural out, times n^-1.
-// Every butterfly is exact modular arithmetic, so the output is bit for
-// bit that of the in-place network whatever the schedule.
+// Every butterfly is exact modular arithmetic and reads the twiddle
+// psi_br[m + blk] of the in-place network, so the output is bit for bit
+// that network's whatever the schedule.
 //
-// Layout: x is [rows, n] uint64, transformed in place.  Each row carries
-// its global limb index (row_limb, int32), which selects q, qinv, the
-// row of the [L, n] Montgomery twiddle table and n^-1.  Batch dims are
-// folded into rows by the caller, as pallas_ntt.transform does.
+// Layout: in is [rows, n] uint64 read through (batch, limb) strides, out
+// is [rows, n] contiguous.  Each row carries its global limb index
+// (row_limb, int32), which selects q, qinv, the row of the [L, n]
+// Montgomery twiddle table and n^-1.
 //
-// What bounds it on the card: device-memory bytes.  A butterfly stage
-// is 2 mont-free adds and one Montgomery product per pair, while each
-// pass over a limb moves 16 B per element (read + write) plus the
-// twiddle.  At logN=16 one limb is 512 KB, more than a block's shared
-// memory, so the transform cannot stay on chip whole.  The design: the
-// spans t >= 2048 run as one launch per stage (one thread per butterfly,
-// 5 passes at logN=16), and the last 11 spans (t <= 1024), which stay
-// inside 2048-element chunks, run in one launch that keeps each chunk
-// in 16 KB of shared memory across those stages.  That is 6 passes over
-// device memory instead of 16.  The inverse mirrors it (chunk stages
-// first), and n^-1 is folded into its last stage.
+// What bounds it on the card: the integer pipe.  A transform is log n
+// stages of n/2 butterflies; one butterfly compiles to 39 (forward) or
+// 35 (inverse) 32-bit integer instructions, most of them the multiply-
+// adds of a 64-bit Montgomery product.  At [128,1,6,N], N = 2^16, that
+// is about 0.9 ms at 64 lanes per SM per clock on an H100, against
+// 0.24 ms for the bytes (each element read once and written once).  The
+// design first removes the device-memory traffic that a 512 KB ring does
+// not force (the earlier kernel made seven passes and was memory bound),
+// then trims the arithmetic:
+//
+//   * One transform is at most two launches, each one pass.  A pass
+//     runs a group of consecutive stages on a tile held in shared
+//     memory.  Write the index as i = hi * 2^b + lo.  The stages with
+//     span >= 2^b pair elements that differ only in hi: for a fixed lo
+//     they are a 2^a-point transform down a column of stride 2^b, with
+//     the twiddles psi_br[1 .. 2^a).  A block of the column pass takes W
+//     neighbouring columns (W * 8 B contiguous per tile row).  The stages
+//     with span < 2^b stay inside contiguous 2^b-element chunks; chunk c
+//     is a 2^b-point transform whose stage s' reads
+//     psi_br[((2^a + c) << s') + block].  Both are the same
+//     sub-transform with a different "root" index (1 for columns,
+//     2^a + c for chunks), so one kernel serves both.
+//   * Rings up to 2^14 (128 KB) fit one block: one launch, a = 0.
+//     Above, b = 8: forward = column pass (in -> out) then chunk pass
+//     (in place); inverse = chunk pass (in -> out) then column pass.
+//   * Inside a pass a thread holds 2^R elements in registers (R = 3,
+//     the first round R = k mod 3 when that is not 0) and does R stages
+//     between two exchanges through shared memory: 8 stages are three
+//     rounds and two __syncthreads().  The first round loads straight
+//     from device memory and the last stores straight to it wherever
+//     those accesses coalesce.  Twiddles are read where they are used,
+//     through the read-only cache: a column pass reads the same 2^a - 1
+//     in every block, and the short spans of a chunk use each only once.
+//   * The tile is stored swizzled, phys = L ^ ((L >> 3) & 15), which
+//     puts the 16 64-bit accesses of a half-warp on distinct bank pairs
+//     for every radix-8 round, at every span down to 1.
+//   * Lazy reduction (Harvey): forward values stay in [0, 4q), inverse
+//     values in [0, 2q) between stages, across both passes; q < 2^62
+//     leaves the room.  The last round of the last pass stores canonical
+//     residues, the same ones the canonical arithmetic gives.
+//   * n^-1 is folded into the last inverse stage: s*ninv and
+//     d*(w*ninv), two products per butterfly instead of three.
+//
+// The pass split, tile width, threads, shared-memory bytes and grid are
+// worked out by core/ntt_kernel.plan and arrive here as plain integers;
+// this file validates them and launches.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -33,205 +69,251 @@
 
 namespace {
 
-constexpr int kLogChunk = 11;     // 2048 uint64 = 16 KB of shared memory
-constexpr int kTailThreads = 512;
+constexpr int kMaxLogN = 17;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxSmem = 232448;  // 227 KB, the most a block can have
 
-using optconv::add_mod;
+using optconv::cond_sub;
+using optconv::ct_butterfly;
+using optconv::gs_butterfly;
 using optconv::mont_mul;
-using optconv::sub_mod;
 
-// One stage with span t = 2^log_t over the whole row (t >= chunk).
-__global__ void fwd_stage(uint64_t* __restrict__ x,
-                          const int* __restrict__ row_limb,
-                          const uint64_t* __restrict__ q,
-                          const uint64_t* __restrict__ qinv,
-                          const uint64_t* __restrict__ tw, long long rows,
-                          int log_n, int log_t) {
-  const long long half = 1ll << (log_n - 1);
-  const long long t = 1ll << log_t;
-  const long long m = half >> log_t;            // blocks at this stage
-  const long long total = rows * half;
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       k < total; k += (long long)gridDim.x * blockDim.x) {
-    const long long row = k >> (log_n - 1);
-    const long long kk = k & (half - 1);
-    const long long blk = kk >> log_t;
-    const long long i0 = (blk << (log_t + 1)) + (kk & (t - 1));
-    const int limb = row_limb[row];
-    const uint64_t qq = q[limb], qi = qinv[limb];
-    const uint64_t w = tw[((long long)limb << log_n) + m + blk];
-    uint64_t* xr = x + (row << log_n);
-    const uint64_t u = xr[i0];
-    const uint64_t v = mont_mul(xr[i0 + t], w, qq, qi);
-    xr[i0] = add_mod(u, v, qq);
-    xr[i0 + t] = sub_mod(u, v, qq);
-  }
+// Geometry of one pass, the same for every block.
+struct Tile {
+  int k;           // log2 points of a sub-transform
+  int tile_log;    // log2 elements of the tile
+  int p0;          // bit of the tile index L where the point index starts
+  int gw;          // L's low gw bits are contiguous in device memory
+  int log_stride;  // log2 element stride of L >> gw in device memory
+  int root0;       // root index of the tile's first sub-transform
+};
+
+__device__ __forceinline__ int swz(int L) { return L ^ ((L >> 3) & 15); }
+
+__device__ __forceinline__ long long goff(const Tile& t, int L) {
+  return ((long long)(L >> t.gw) << t.log_stride) + (L & ((1 << t.gw) - 1));
 }
 
-__global__ void inv_stage(uint64_t* __restrict__ x,
-                          const int* __restrict__ row_limb,
-                          const uint64_t* __restrict__ q,
-                          const uint64_t* __restrict__ qinv,
-                          const uint64_t* __restrict__ tw,
-                          const uint64_t* __restrict__ ninv, long long rows,
-                          int log_n, int log_t, int fold_ninv) {
-  const long long half = 1ll << (log_n - 1);
-  const long long t = 1ll << log_t;
-  const long long h = half >> log_t;
-  const long long total = rows * half;
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       k < total; k += (long long)gridDim.x * blockDim.x) {
-    const long long row = k >> (log_n - 1);
-    const long long kk = k & (half - 1);
-    const long long blk = kk >> log_t;
-    const long long i0 = (blk << (log_t + 1)) + (kk & (t - 1));
-    const int limb = row_limb[row];
-    const uint64_t qq = q[limb], qi = qinv[limb];
-    const uint64_t w = tw[((long long)limb << log_n) + h + blk];
-    uint64_t* xr = x + (row << log_n);
-    const uint64_t u = xr[i0];
-    const uint64_t v = xr[i0 + t];
-    uint64_t s = add_mod(u, v, qq);
-    uint64_t d = mont_mul(sub_mod(u, v, qq), w, qq, qi);
-    if (fold_ninv) {
-      const uint64_t ni = ninv[limb];
-      s = mont_mul(s, ni, qq, qi);
-      d = mont_mul(d, ni, qq, qi);
+// R consecutive stages (local stages s0 .. s0+R-1 of the k-stage
+// sub-transform) on every group of 2^R elements of the tile.  Group g
+// holds the tile indices that differ in bits P .. P+R-1, P = p0 + p,
+// p = k - s0 - R.  Stage s0+u of the group reads the twiddles
+// tw[(Rr << u) + jh], jh < 2^u, where Rr = (root << s0) + (e >> (p + R))
+// and e is the point index: that is psi_br[m + blk] of the whole ring.
+template <int R, bool INV>
+__device__ __forceinline__ void radix_round(
+    const Tile& t, const uint64_t* src, uint64_t* dst, uint64_t* sm,
+    bool from_g, bool to_g, const uint64_t* __restrict__ tw, uint64_t q,
+    uint64_t qi, uint64_t ni, bool fold, bool canon, int s0) {
+  const uint64_t q2 = q + q;
+  const int p = t.k - s0 - R;
+  const int P = t.p0 + p;
+  const int groups = 1 << (t.tile_log - R);
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    const int Lb = (g & ((1 << P) - 1)) | ((g >> P) << (P + R));
+    const int e = (Lb >> t.p0) & ((1 << t.k) - 1);
+    const int root = t.root0 + (t.p0 == 0 ? (Lb >> t.k) : 0);
+    const int Rr = (root << s0) + (e >> (p + R));
+    uint64_t x[1 << R];
+#pragma unroll
+    for (int j = 0; j < (1 << R); ++j) {
+      const int L = Lb | (j << P);
+      x[j] = from_g ? src[goff(t, L)] : sm[swz(L)];
     }
-    xr[i0] = s;
-    xr[i0 + t] = d;
+#pragma unroll
+    for (int uu = 0; uu < R; ++uu) {
+      const int u = INV ? R - 1 - uu : uu;
+      const int span = 1 << (R - 1 - u);
+#pragma unroll
+      for (int jh = 0; jh < (1 << u); ++jh) {
+        uint64_t w = __ldg(tw + ((Rr << u) + jh));
+        const bool scale = INV && fold && u == 0;
+        if (scale) w = mont_mul(w, ni, q, qi);
+#pragma unroll
+        for (int jl = 0; jl < span; ++jl) {
+          const int j0 = jh * 2 * span + jl;
+          if (!INV) {
+            ct_butterfly(x[j0], x[j0 + span], w, q, q2, qi);
+          } else if (scale) {            // the last stage: canonical out
+            const uint64_t a = x[j0], b = x[j0 + span];
+            x[j0] = mont_mul(a + b, ni, q, qi);
+            x[j0 + span] = mont_mul(a - b + q2, w, q, qi);
+          } else {
+            gs_butterfly(x[j0], x[j0 + span], w, q, q2, qi);
+          }
+        }
+      }
+    }
+    if (!INV && canon) {
+#pragma unroll
+      for (int j = 0; j < (1 << R); ++j) x[j] = cond_sub(cond_sub(x[j], q2), q);
+    }
+#pragma unroll
+    for (int j = 0; j < (1 << R); ++j) {
+      const int L = Lb | (j << P);
+      if (to_g) dst[goff(t, L)] = x[j];
+      else sm[swz(L)] = x[j];
+    }
   }
 }
 
-// All stages with span t < chunk, one chunk of one row per block
-// iteration, the chunk held in shared memory across the stages.
-__global__ void __launch_bounds__(kTailThreads)
-fwd_tail(uint64_t* __restrict__ x, const int* __restrict__ row_limb,
-         const uint64_t* __restrict__ q, const uint64_t* __restrict__ qinv,
-         const uint64_t* __restrict__ tw, long long rows, int log_n,
-         int log_chunk) {
-  __shared__ uint64_t s[1 << kLogChunk];
-  const int chunk = 1 << log_chunk;
-  const long long per_row = 1ll << (log_n - log_chunk);
-  const long long half = 1ll << (log_n - 1);
-  for (long long b = blockIdx.x; b < rows * per_row; b += gridDim.x) {
-    const long long row = b >> (log_n - log_chunk);
-    const long long c = b & (per_row - 1);
-    const int limb = row_limb[row];
-    const uint64_t qq = q[limb], qi = qinv[limb];
-    const uint64_t* twl = tw + ((long long)limb << log_n);
-    uint64_t* xr = x + (row << log_n) + (c << log_chunk);
-    for (int i = threadIdx.x; i < chunk; i += blockDim.x) s[i] = xr[i];
-    __syncthreads();
-    for (int log_t = log_chunk - 1; log_t >= 0; --log_t) {
-      const int t = 1 << log_t;
-      const long long m = half >> log_t;
-      const long long gblk0 = c << (log_chunk - 1 - log_t);
-      for (int k = threadIdx.x; k < chunk / 2; k += blockDim.x) {
-        const int blk = k >> log_t;
-        const int i0 = (blk << (log_t + 1)) + (k & (t - 1));
-        const uint64_t w = twl[m + gblk0 + blk];
-        const uint64_t u = s[i0];
-        const uint64_t v = mont_mul(s[i0 + t], w, qq, qi);
-        s[i0] = add_mod(u, v, qq);
-        s[i0 + t] = sub_mod(u, v, qq);
-      }
+// One pass: blockIdx.x = row * tiles_per_row + tile.  log_stride > 0 is
+// a column pass (k + log_stride == log_n, 2^log_w columns a tile),
+// log_stride == 0 a chunk pass (2^log_w chunks of 2^k a tile).
+template <bool INV>
+__global__ void __launch_bounds__(kMaxThreads)
+ntt_pass(const uint64_t* in, uint64_t* out, const int* __restrict__ row_limb,
+         const uint64_t* __restrict__ q_, const uint64_t* __restrict__ qinv_,
+         const uint64_t* __restrict__ tw_, const uint64_t* __restrict__ ninv_,
+         long long l, long long in_bs, long long in_ls, int log_n, int k,
+         int log_stride, int log_w, int final_pass) {
+  extern __shared__ uint64_t sm[];
+  const bool col = log_stride > 0;
+  Tile t;
+  t.k = k;
+  t.tile_log = k + log_w;
+  t.p0 = col ? log_w : 0;
+  t.gw = col ? log_w : t.tile_log;
+  t.log_stride = log_stride;
+  const int log_tpr = log_n - t.tile_log;
+  const long long row = (long long)blockIdx.x >> log_tpr;
+  const int tile = (int)(blockIdx.x & ((1u << log_tpr) - 1u));
+  t.root0 = col ? 1 : (1 << (log_n - k)) + (tile << log_w);
+  const long long base = col ? ((long long)tile << log_w)
+                             : ((long long)tile << t.tile_log);
+  const uint64_t* src = in + (row / l) * in_bs + (row % l) * in_ls + base;
+  uint64_t* dst = out + (row << log_n) + base;
+  const int limb = row_limb[row];
+  const uint64_t q = q_[limb], qi = qinv_[limb], ni = ninv_[limb];
+  const uint64_t* tw = tw_ + ((long long)limb << log_n);
+  const int n_tile = 1 << t.tile_log;
+
+  // Stage groups: the first has k mod 3 stages (3 if that is 0), the
+  // others 3.  Forward walks them first to last, the inverse last to
+  // first, so the short round always has the longest span.
+  const int r_first = k % 3 ? k % 3 : (k < 3 ? k : 3);
+  const int rounds = (k + 2) / 3;
+  for (int i = 0; i < rounds; ++i) {
+    const int grp = INV ? rounds - 1 - i : i;
+    const int R = grp == 0 ? r_first : 3;
+    const int s0 = grp == 0 ? 0 : r_first + 3 * (grp - 1);
+    const int p = k - s0 - R;
+    const bool direct = col || p >= 2;   // device-memory access coalesces
+    const bool first = i == 0, last = i == rounds - 1;
+    if (first && !direct) {
+      for (int L = threadIdx.x; L < n_tile; L += blockDim.x)
+        sm[swz(L)] = src[goff(t, L)];
       __syncthreads();
     }
-    for (int i = threadIdx.x; i < chunk; i += blockDim.x) xr[i] = s[i];
-    __syncthreads();
+    const bool from_g = first && direct, to_g = last && direct;
+    const bool fd = final_pass && s0 == 0;   // n^-1 goes into stage 0
+    const bool cn = final_pass && last;      // canonical residues out
+    if (R == 3)
+      radix_round<3, INV>(t, src, dst, sm, from_g, to_g, tw, q, qi, ni, fd, cn,
+                          s0);
+    else if (R == 2)
+      radix_round<2, INV>(t, src, dst, sm, from_g, to_g, tw, q, qi, ni, fd, cn,
+                          s0);
+    else
+      radix_round<1, INV>(t, src, dst, sm, from_g, to_g, tw, q, qi, ni, fd, cn,
+                          s0);
+    if (!to_g) __syncthreads();
+    if (last && !direct)
+      for (int L = threadIdx.x; L < n_tile; L += blockDim.x)
+        dst[goff(t, L)] = sm[swz(L)];
   }
 }
 
-__global__ void __launch_bounds__(kTailThreads)
-inv_tail(uint64_t* __restrict__ x, const int* __restrict__ row_limb,
-         const uint64_t* __restrict__ q, const uint64_t* __restrict__ qinv,
-         const uint64_t* __restrict__ tw, const uint64_t* __restrict__ ninv,
-         long long rows, int log_n, int log_chunk, int apply_ninv) {
-  __shared__ uint64_t s[1 << kLogChunk];
-  const int chunk = 1 << log_chunk;
-  const long long per_row = 1ll << (log_n - log_chunk);
-  const long long half = 1ll << (log_n - 1);
-  for (long long b = blockIdx.x; b < rows * per_row; b += gridDim.x) {
-    const long long row = b >> (log_n - log_chunk);
-    const long long c = b & (per_row - 1);
-    const int limb = row_limb[row];
-    const uint64_t qq = q[limb], qi = qinv[limb];
-    const uint64_t* twl = tw + ((long long)limb << log_n);
-    uint64_t* xr = x + (row << log_n) + (c << log_chunk);
-    for (int i = threadIdx.x; i < chunk; i += blockDim.x) s[i] = xr[i];
-    __syncthreads();
-    for (int log_t = 0; log_t < log_chunk; ++log_t) {
-      const int t = 1 << log_t;
-      const long long h = half >> log_t;
-      const long long gblk0 = c << (log_chunk - 1 - log_t);
-      for (int k = threadIdx.x; k < chunk / 2; k += blockDim.x) {
-        const int blk = k >> log_t;
-        const int i0 = (blk << (log_t + 1)) + (k & (t - 1));
-        const uint64_t w = twl[h + gblk0 + blk];
-        const uint64_t u = s[i0];
-        const uint64_t v = s[i0 + t];
-        s[i0] = add_mod(u, v, qq);
-        s[i0 + t] = mont_mul(sub_mod(u, v, qq), w, qq, qi);
-      }
-      __syncthreads();
+template <bool INV>
+cudaError_t launch(const uint64_t* in, uint64_t* out, const int* row_limb,
+                   const uint64_t* q, const uint64_t* qinv, const uint64_t* tw,
+                   const uint64_t* ninv, long long l, long long in_bs,
+                   long long in_ls, int log_n, const int* ps, int final_pass,
+                   cudaStream_t stream) {
+  const int smem = ps[4];
+  if (smem > 48 * 1024) {
+    // per device: the attribute belongs to the function in that context
+    static bool raised[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= 64 || !raised[dev]) {
+      err = cudaFuncSetAttribute(ntt_pass<INV>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxSmem);
+      if (err != cudaSuccess) return err;
+      if (dev >= 0 && dev < 64) raised[dev] = true;
     }
-    const uint64_t ni = ninv[limb];
-    for (int i = threadIdx.x; i < chunk; i += blockDim.x)
-      xr[i] = apply_ninv ? mont_mul(s[i], ni, qq, qi) : s[i];
-    __syncthreads();
   }
+  ntt_pass<INV><<<(unsigned)ps[5], ps[3], smem, stream>>>(
+      in, out, row_limb, q, qinv, tw, ninv, l, in_bs, in_ls, log_n, ps[0],
+      ps[1], ps[2], final_pass);
+  return cudaGetLastError();
 }
 
-unsigned grid_for(long long work, int threads) {
-  long long g = (work + threads - 1) / threads;
-  if (g > (1ll << 20)) g = 1ll << 20;
-  return (unsigned)(g < 1 ? 1 : g);
+// ps = {k, log_stride, log_w, threads, smem bytes, grid}
+bool pass_ok(const int* ps, long long rows, int log_n) {
+  const int k = ps[0], ls = ps[1], lw = ps[2], th = ps[3], smem = ps[4];
+  if (k < 1 || ls < 0 || lw < 0 || k + lw > log_n) return false;
+  if (ls > 0 && (k + ls != log_n || lw > ls)) return false;
+  if (th < 32 || th > kMaxThreads || th % 32) return false;
+  if (smem < (8 << (k + lw)) || smem > kMaxSmem) return false;
+  const long long grid = rows << (log_n - k - lw);
+  return grid <= 0x7fffffffll && grid == ps[5];
 }
 
 }  // namespace
 
-// In-place transform of x [rows, 2^log_n]; tw is psi_br (forward) or
-// ipsi_br (inverse), Montgomery form, [L, n]; q/qinv/ninv are [L].
-extern "C" int optconv_ntt(void* x_, const void* row_limb_, const void* q_,
-                           const void* qinv_, const void* tw_,
-                           const void* ninv_, long long rows, int log_n,
-                           int inverse, void* stream_) {
-  if (log_n < 1 || log_n > 20 || rows < 1) return (int)cudaErrorInvalidValue;
-  auto* x = (uint64_t*)x_;
+// Transform in -> out.  in: row r of the [rows, 2^log_n] view starts at
+// element (r / l) * in_bs + (r % l) * in_ls and has unit stride; out is
+// contiguous and must not overlap in.  tw is psi_br (forward) or ipsi_br
+// (inverse), Montgomery form, [L, n]; q/qinv/ninv are [L].  n_pass (1 or
+// 2) passes in execution order, six integers each (see pass_ok), from
+// core/ntt_kernel.plan.  Returns a cudaError_t; cudaErrorInvalidValue
+// for a ring or a plan this file does not take.
+extern "C" int optconv_ntt(const void* in_, void* out_, const void* row_limb_,
+                           const void* q_, const void* qinv_, const void* tw_,
+                           const void* ninv_, long long rows, long long l,
+                           long long in_bs, long long in_ls, int log_n,
+                           int inverse, int n_pass, int k0, int ls0, int lw0,
+                           int th0, int sm0, int g0, int k1, int ls1, int lw1,
+                           int th1, int sm1, int g1, void* stream_) {
+  if (log_n < 1 || log_n > kMaxLogN || rows < 1 || l < 1)
+    return (int)cudaErrorInvalidValue;
+  const int ps[2][6] = {{k0, ls0, lw0, th0, sm0, g0},
+                        {k1, ls1, lw1, th1, sm1, g1}};
+  if (n_pass == 1) {
+    if (!pass_ok(ps[0], rows, log_n) || ls0 != 0 || k0 != log_n)
+      return (int)cudaErrorInvalidValue;
+  } else if (n_pass == 2) {
+    const int* colp = ps[inverse ? 1 : 0];
+    const int* chk = ps[inverse ? 0 : 1];
+    if (!pass_ok(colp, rows, log_n) || !pass_ok(chk, rows, log_n) ||
+        colp[1] == 0 || chk[1] != 0 || colp[0] + chk[0] != log_n)
+      return (int)cudaErrorInvalidValue;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto* in = (const uint64_t*)in_;
+  auto* out = (uint64_t*)out_;
   auto* row_limb = (const int*)row_limb_;
   auto* q = (const uint64_t*)q_;
   auto* qinv = (const uint64_t*)qinv_;
   auto* tw = (const uint64_t*)tw_;
   auto* ninv = (const uint64_t*)ninv_;
   auto stream = (cudaStream_t)stream_;
-  const int log_chunk = log_n < kLogChunk ? log_n : kLogChunk;
-  const long long half_total = rows << (log_n - 1);
-  const unsigned stage_grid = grid_for(half_total, 256);
-  const unsigned tail_grid = grid_for(rows << (log_n - log_chunk), 1);
-  const int tail_threads =
-      (1 << (log_chunk - 1)) < kTailThreads ? (1 << (log_chunk - 1))
-                                            : kTailThreads;
+  const long long n = 1ll << log_n;
   cudaError_t err;
   if (!inverse) {
-    for (int log_t = log_n - 1; log_t >= log_chunk; --log_t) {
-      fwd_stage<<<stage_grid, 256, 0, stream>>>(x, row_limb, q, qinv, tw,
-                                                rows, log_n, log_t);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    }
-    fwd_tail<<<tail_grid, tail_threads, 0, stream>>>(x, row_limb, q, qinv, tw,
-                                                     rows, log_n, log_chunk);
-    return (int)cudaGetLastError();
+    err = launch<false>(in, out, row_limb, q, qinv, tw, ninv, l, in_bs, in_ls,
+                        log_n, ps[0], n_pass == 1, stream);
+    if (err != cudaSuccess || n_pass == 1) return (int)err;
+    return (int)launch<false>(out, out, row_limb, q, qinv, tw, ninv, l, l * n,
+                              n, log_n, ps[1], 1, stream);
   }
-  const bool tail_only = log_chunk == log_n;
-  inv_tail<<<tail_grid, tail_threads, 0, stream>>>(
-      x, row_limb, q, qinv, tw, ninv, rows, log_n, log_chunk, tail_only);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  for (int log_t = log_chunk; log_t < log_n; ++log_t) {
-    inv_stage<<<stage_grid, 256, 0, stream>>>(x, row_limb, q, qinv, tw, ninv,
-                                              rows, log_n, log_t,
-                                              log_t == log_n - 1);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+  err = launch<true>(in, out, row_limb, q, qinv, tw, ninv, l, in_bs, in_ls,
+                     log_n, ps[0], n_pass == 1, stream);
+  if (err != cudaSuccess || n_pass == 1) return (int)err;
+  return (int)launch<true>(out, out, row_limb, q, qinv, tw, ninv, l, l * n, n,
+                           log_n, ps[1], 1, stream);
 }

@@ -1,0 +1,168 @@
+"""What the compiler made of the port's CUDA kernels.
+
+    python -m optimal_conv_tpu_torch.utils.kernel_info
+
+Needs the CUDA toolkit (``nvcc``, ``cuobjdump``), not a card.  Prints,
+for every kernel in ``csrc/*.cu``, the registers, spills and shared
+memory that ``nvcc -Xptxas -v`` reports and the opcode mix of its SASS,
+and the 32-bit integer instructions of one NTT butterfly and of one
+Montgomery product: the SASS of a probe kernel that loads (u, v, w),
+does the arithmetic with ``csrc/modarith.cuh`` and stores, less the SASS
+of the same kernel without the arithmetic.  ``chip_smoke.py`` turns that
+count into the kernels' arithmetic bound.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+
+from ..core import cuda_lib
+
+PROBE = r"""
+#include <cstdint>
+#include "modarith.cuh"
+using namespace optconv;
+extern "C" __global__ void probe_copy(uint64_t* x, const uint64_t* w,
+                                      uint64_t q, uint64_t qi) {
+  const int i = threadIdx.x;
+  const uint64_t u = x[i], v = x[i + 1024], ww = w[i];
+  x[i] = u; x[i + 1024] = v; x[i + 2048] = ww + q + qi;
+}
+extern "C" __global__ void probe_fwd(uint64_t* x, const uint64_t* w,
+                                     uint64_t q, uint64_t qi) {
+  const int i = threadIdx.x;
+  uint64_t u = x[i], v = x[i + 1024];
+  const uint64_t ww = w[i];
+  ct_butterfly(u, v, ww, q, q + q, qi);
+  x[i] = u; x[i + 1024] = v; x[i + 2048] = ww + q + qi;
+}
+extern "C" __global__ void probe_inv(uint64_t* x, const uint64_t* w,
+                                     uint64_t q, uint64_t qi) {
+  const int i = threadIdx.x;
+  uint64_t u = x[i], v = x[i + 1024];
+  const uint64_t ww = w[i];
+  gs_butterfly(u, v, ww, q, q + q, qi);
+  x[i] = u; x[i + 1024] = v; x[i + 2048] = ww + q + qi;
+}
+extern "C" __global__ void probe_mul(uint64_t* x, const uint64_t* w,
+                                     uint64_t q, uint64_t qi) {
+  const int i = threadIdx.x;
+  const uint64_t u = x[i], v = x[i + 1024], ww = w[i];
+  x[i] = u; x[i + 1024] = mont_mul(v, ww, q, qi);
+  x[i + 2048] = ww + q + qi;
+}
+"""
+
+# opcodes that are not arithmetic of the integer pipe: memory, control,
+# special registers and the uniform datapath
+_NOT_INT = re.compile(r"^(LD|ST|ATOM|RED|BRA|EXIT|NOP|BAR|S2R|S2UR|CS2R|"
+                      r"ULDC|UMOV|UIADD|UIMAD|ULOP|USHF|ULEA|USEL|UISETP|"
+                      r"UPLOP|UFLO|WARPSYNC|BSSY|BSYNC|CALL|RET|DEPBAR|"
+                      r"MEMBAR|ERRBAR|LEPC|BPT|YIELD|NANOSLEEP|CCTL|R2UR|VOTE"
+                      r"|JMP|BRX|BMOV|KILL|PREEXIT|ACQBULK|CGAERRBAR)")
+
+
+def _tool(name: str) -> str:
+    found = shutil.which(name)
+    if found:
+        return found
+    path = os.path.join(os.path.dirname(cuda_lib._nvcc()), name)
+    if os.path.exists(path):
+        return path
+    raise RuntimeError(f"{name} not found beside nvcc")
+
+
+def _compile(src: str, out: str) -> str:
+    """nvcc -cubin with -Xptxas -v; returns the compiler's report."""
+    flags = [f for f in cuda_lib.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    cmd = [cuda_lib._nvcc(), *flags, "-I", str(cuda_lib.CSRC), "-Xptxas", "-v",
+           "-cubin", "-o", out, src]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
+    return res.stdout + res.stderr
+
+
+def sass_opcodes(cubin: str) -> dict[str, collections.Counter]:
+    """{function: Counter of opcodes (with their suffixes)} of a cubin."""
+    res = subprocess.run([_tool("cuobjdump"), "-sass", cubin],
+                         capture_output=True, text=True, check=True)
+    out: dict[str, collections.Counter] = {}
+    cur = None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), collections.Counter())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_.]+)",
+                     line)
+        if m and cur is not None:
+            cur[m.group(1)] += 1
+    return out
+
+
+def int_instructions(ops: collections.Counter) -> int:
+    return sum(n for op, n in ops.items() if not _NOT_INT.match(op))
+
+
+def butterfly_instructions() -> dict:
+    """32-bit integer-pipe instructions of one forward butterfly, one
+    inverse butterfly and one Montgomery product, from the probe
+    kernels' SASS."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "probe.cu")
+        with open(src, "w") as f:
+            f.write(PROBE)
+        cubin = os.path.join(tmp, "probe.cubin")
+        _compile(src, cubin)
+        ops = sass_opcodes(cubin)
+    base = int_instructions(ops["probe_copy"])
+    out = {}
+    for name in ("fwd", "inv", "mul"):
+        mix = ops[f"probe_{name}"] - ops["probe_copy"]
+        out[name] = dict(
+            int32=int_instructions(ops[f"probe_{name}"]) - base,
+            mix={op: n for op, n in sorted(mix.items())
+                 if not _NOT_INT.match(op)})
+    return out
+
+
+def kernel_reports() -> dict:
+    """Per source file: ptxas' report and the opcode mix per kernel."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted(cuda_lib.CSRC.glob("*.cu")):
+            cubin = os.path.join(tmp, src.stem + ".cubin")
+            report = _compile(str(src), cubin)
+            kernels = {}
+            for fn, ops in sass_opcodes(cubin).items():
+                kernels[fn] = dict(instructions=sum(ops.values()),
+                                   int32=int_instructions(ops),
+                                   top=dict(ops.most_common(12)))
+            out[src.name] = dict(ptxas=report.strip().splitlines(),
+                                 kernels=kernels)
+    return out
+
+
+def main() -> int:
+    info = dict(butterfly=butterfly_instructions(), sources=kernel_reports())
+    for name, rep in info["sources"].items():
+        print(f"== {name}")
+        print("\n".join(rep["ptxas"]))
+        for fn, k in rep["kernels"].items():
+            print(f"{fn}: {k['instructions']} SASS instructions, "
+                  f"{k['int32']} integer; top {k['top']}")
+    print(json.dumps({"butterfly": info["butterfly"]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -68,14 +68,17 @@ def test_mont_mul_kernel_equals_plain(dev, case):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("log_n", [10, 12, 16])
+@pytest.mark.parametrize("log_n", [3, 8, 9, 10, 11, 12, 13, 14, 15, 16])
 def test_ntt_kernel_equals_plain(dev, log_n):
-    p = boot_params(log_n)
-    ctx = NttContext(p.moduli, log_n, dev)
+    """Every branch of the plan: one launch up to 2^14, two above; the
+    short first round (k mod 3 = 1, 2) and none.  The logN-16 chain's
+    primes are 1 mod 2^17, so they carry every smaller ring."""
+    mods = boot_params(16).moduli
+    ctx = NttContext(mods, log_n, dev)
     rng = np.random.default_rng(log_n)
     n = 1 << log_n
-    idx = tuple(range(len(p.moduli)))
-    a = _residues(p.moduli, (len(idx), n), rng, dev)
+    idx = tuple(range(len(mods)))
+    a = _residues(mods, (len(idx), n), rng, dev)
     q, qinv = ctx.tabs(idx)[:2]
     psi, ipsi, ninv = ctx.plain_tabs(idx)
     ntt_kernel.STATS_FWD.reset()
@@ -96,6 +99,36 @@ def test_ntt_kernel_equals_plain(dev, log_n):
     qs, qis = ctx.tabs(sub)[:2]
     ps = ctx.plain_tabs(sub)[0]
     assert torch.equal(ctx.ntt(xb, sub), _ntt_fwd(xb, ps, qs, qis, log_n))
+
+
+@pytest.mark.parametrize("log_n", [12, 16])
+@pytest.mark.parametrize("view", ["p_rows", "batch_step"])
+def test_ntt_kernel_strided_input(dev, log_n, view):
+    """A slice of the limb dim is read in place through its strides (the
+    P rows of a QP accumulator, as mod-down passes them); a view whose
+    batch dims do not collapse is copied once.  Both equal the plain
+    version on the same view and leave the input as it was."""
+    mods = boot_params(16).moduli
+    ctx = NttContext(mods, log_n, dev)
+    rng = np.random.default_rng(7)
+    n = 1 << log_n
+    qp = (0, 1, 2, 3, 4, 32)
+    acc = _residues([mods[i] for i in qp], (4, 6, n), rng, dev)
+    if view == "p_rows":
+        x, sub = acc[:2, 5:, :], qp[5:]
+        assert ntt_kernel._row_strides(x) == (6 * n, n)
+    else:
+        x, sub = acc.reshape(2, 2, 6, n).transpose(0, 1)[:, :, 2:, :], qp[2:]
+        assert ntt_kernel._row_strides(x) is None
+    assert not x.is_contiguous()
+    keep = acc.clone()
+    q, qinv = ctx.tabs(sub)[:2]
+    psi, ipsi, ninv = ctx.plain_tabs(sub)
+    f = ctx.ntt(x, sub)
+    assert f.is_contiguous() and f.shape == x.shape
+    assert torch.equal(f, _ntt_fwd(x, psi, q, qinv, log_n))
+    assert torch.equal(ctx.intt(x, sub), _ntt_inv(x, ipsi, ninv, q, qinv, log_n))
+    assert torch.equal(acc, keep)
 
 
 def test_kernels_reject_bad_input(dev):
