@@ -20,7 +20,11 @@ kernel's time stands its bound: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its 32-bit integer
 instructions (counted from the compiled arithmetic by
 ``optimal_conv_tpu_torch.utils.kernel_info``) over 64 lanes per SM per
-clock at the card's maximum SM clock.  After the main path one warm
+clock at the card's maximum SM clock.  K1 is held to its plain version
+on every access path of its kernel (16-byte and 8-byte, column scalars,
+broadcast and sliced rows, the chained product) and timed at five
+main-path shapes (``utils.mont_bench.timed_cases``), with its wrapper's
+host time per call.  After the main path one warm
 conv at 16²×256 is split into host-side kernel encoding and the
 device-side ``conv_then_pack``, whose kernels are listed by
 ``torch.profiler``.  Any failed check raises and the script exits
@@ -49,7 +53,7 @@ from optimal_conv_tpu_torch.core.ntt import NttContext, _ntt_fwd, _ntt_inv
 from optimal_conv_tpu_torch.models.resnet import (ResNetConfig,
                                                   encrypt_fc_input, fc_conv)
 from optimal_conv_tpu_torch.ops import conv as convops
-from optimal_conv_tpu_torch.utils import kernel_info
+from optimal_conv_tpu_torch.utils import kernel_info, mont_bench
 from optimal_conv_tpu_torch.utils.timing import cuda_ms, cuda_ms_cold
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -60,7 +64,7 @@ INT32_LANES_PER_SM = 64        # Hopper architecture white paper
 # 32-bit integer instructions of one forward / inverse butterfly and one
 # Montgomery product as nvcc 12 compiles csrc/modarith.cuh for sm_90a
 # (kernel_info on an H100 machine); used only where cuobjdump is missing
-INT32_FALLBACK = {"fwd": 39, "inv": 35, "mul": 33}
+INT32_FALLBACK = {"fwd": 39, "inv": 35, "mul": 33, "mul2": 56}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -94,6 +98,7 @@ class Card:
         except (RuntimeError, OSError, subprocess.CalledProcessError) as e:
             self.int32 = dict(INT32_FALLBACK)
             self.int32_from = f"recorded counts ({type(e).__name__}: {e})"
+        self.k1_whole = kernel_info.mont_kernel_instructions()
         print(f"bounds: {HBM_BYTES_PER_S / 1e12} TB/s; {self.sms} SMs x "
               f"{INT32_LANES_PER_SM} int32 lanes x {self.sm_hz / 1e9:.3f} GHz = "
               f"{self.int32_per_s / 1e12:.2f} T int32/s; instructions "
@@ -115,56 +120,107 @@ class Card:
         return self.bound(n_bytes, ops)
 
 
-def residues(mods, lead, n, rng, dev):
-    """Uniform residues [*lead, L, n] with 0 and q-1 in every row."""
-    a = np.stack([rng.integers(0, q, size=lead + (n,), dtype=np.int64)
-                  for q in mods], axis=-2)
-    a[..., 0] = 0
-    a[..., 1] = np.array(mods, dtype=np.int64) - 1
-    return torch.from_numpy(a).to(dev)
+residues = mont_bench.residues
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max().item())
 
 
+def _mont_equal(what, args, c, vec, err):
+    """One K1 call against its plain version: equal, one launch, no plain
+    call from the wrapper, and the access path the plan should take."""
+    a, b, q, qinv = args
+    if vec is not None:
+        pl = mont_kernel.plan(*mont_kernel.describe(a, b, q, qinv, c))
+        check(pl.vec == vec, f"mont_mul {what}: expected the "
+              f"{'16' if vec else '8'}-byte path, plan says vec={pl.vec}")
+    before = mont_kernel.STATS.launches, mont_kernel.STATS.plain_calls
+    got = mm.mont_mul(*args) if c is None else mm.mont_mul2(a, b, c, q, qinv)
+    check((mont_kernel.STATS.launches, mont_kernel.STATS.plain_calls)
+          == (before[0] + 1, before[1]),
+          f"mont_mul {what}: not one launch, or a plain call")
+    want = (mm.mont_mul_plain(*args) if c is None else
+            mm.mont_mul2_plain(a, b, c, q, qinv))
+    check(got.shape == want.shape and torch.equal(got, want),
+          f"mont_mul {what} differs from plain")
+    err[0] = max(err[0], max_err(got, want))
+
+
 def check_mont(dev, p, rng, card):
-    """Phase 2: K1 against its plain version on the card."""
+    """Phase 2: K1 against its plain version on the card, on every access
+    path of the kernel, then its time at five main-path shapes."""
     n = p.n
     qs = p.q_moduli
     q, qinv, r2, _ = mm.limb_tables(qs, dev)
-    err = 0.0
+    err = [0.0]
     a = residues(qs, (), n, rng, dev)
     b = residues(qs, (), n, rng, dev)
-    for args in ((a, b, q, qinv), (a, r2, q, qinv)):
-        got, want = mm.mont_mul(*args), mm.mont_mul_plain(*args)
-        check(torch.equal(got, want), "mont_mul [28, N] differs from plain")
-        err = max(err, max_err(got, want))
+    _mont_equal("[28, N] on the vector path", (a, b, q, qinv), None, True, err)
+    _mont_equal("[28, N] x a column-scalar b", (a, r2, q, qinv), None, True, err)
+    _mont_equal("a column-scalar a x [28, N]", (r2, b, q, qinv), None, True, err)
     qp = p.qp_idx(0)
     mods = [p.moduli[i] for i in qp]
-    q6, qi6, _, _ = mm.limb_tables(mods, dev)
+    q6, qi6, r2_6, _ = mm.limb_tables(mods, dev)
     a6 = residues(mods, (2,), n, rng, dev)
     b6 = residues(mods, (), n, rng, dev)
-    got, want = mm.mont_mul(a6, b6, q6, qi6), mm.mont_mul_plain(a6, b6, q6, qi6)
-    check(torch.equal(got, want), "mont_mul [2, 6, N] differs from plain")
-    err = max(err, max_err(got, want))
-    # timed at the main path's largest product: one level-1 ciphertext
-    # half × 256 kernel plaintexts (conv 3 3: 16²×256)
-    q01, qi01 = q[:2], qinv[:2]
-    ct = residues(qs[:2], (1,), n, rng, dev)
-    pls = residues(qs[:2], (256,), n, rng, dev)
-    ms = cuda_ms(lambda: mm.mont_mul(ct, pls, q01, qi01), dev)
-    plain_ms = cuda_ms(lambda: mm.mont_mul_plain(ct, pls, q01, qi01), dev)
-    out_elems = 256 * 2 * n
-    bnd = card.bound(8 * (ct.numel() + pls.numel() + out_elems),
-                     out_elems * card.int32["mul"])
-    print(f"K1 mont_mul: equal to plain; [1,2,N]x[256,2,N] kernel {ms:.4f} ms,"
-          f" plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
-          f"{bnd['bound_by']} (bytes {bnd['bytes_ms']:.4f}, int32 "
-          f"{bnd['int32_ms']:.4f})")
+    _mont_equal("[2, 6, N] x [6, N]", (a6, b6, q6, qi6), None, True, err)
+    # a view offset by one element along the last axis: 8-byte accesses
+    wide = residues(mods, (2,), n + 2, rng, dev)
+    _mont_equal("a view offset by one element", (wide[..., 1:n + 1], b6, q6, qi6),
+                None, False, err)
+    _mont_equal("the same view, chained", (wide[..., 1:n + 1], b6, q6, qi6),
+                r2_6, False, err)
+    # basis extension: one source limb [.., 1, N] against an [R, 1] column
+    _mont_equal("a broadcast middle dim", (a6[..., 1:2, :], r2_6[:5], q6[:5],
+                                           qi6[:5]), None, True, err)
+    _mont_equal("non-contiguous row slices", (a6[:, 1::2], b6[:3], q6[1::2],
+                                              qi6[1::2]), None, True, err)
+    _mont_equal("N = 2", (a6[..., :2].contiguous(), b6[..., :2].contiguous(),
+                          q6, qi6), None, True, err)
+    _mont_equal("an odd N", (a6[..., :4097].contiguous(),
+                             b6[..., :4097].contiguous(), q6, qi6), None, False,
+                err)
+    a7 = residues(mods[:2], (2, 1, 2, 1, 2, 1), 64, rng, dev)
+    b7 = residues(mods[:2], (1, 2, 1, 2, 1, 2), 64, rng, dev)
+    _mont_equal("more than four unmergeable row dims", (a7, b7, q6[:2], qi6[:2]),
+                None, None, err)
+    # the conv's chained product: one level-1 ciphertext half x C kernel
+    # plaintexts x the SetScale constant, at 128^2 x 4 and 16^2 x 256
+    cases = mont_bench.timed_cases(p, rng, dev)
+    ct, pls, q01, qi01 = cases[1]["args"]
+    _mont_equal("mont_mul2 [1,2,N] x [4,2,N] x [2,1]", (ct, pls[:4], q01, qi01),
+                cases[1]["c"], True, err)
+    rows = []
+    for case in cases:
+        _mont_equal(case["shape"], case["args"], case["c"], True, err)
+        pl = mont_kernel.plan(*mont_kernel.describe(*case["args"], case["c"]))
+        t = mont_bench.time_case(case, dev)
+        plain = (mm.mont_mul_plain if case["c"] is None else
+                 lambda a, b, q, qi: mm.mont_mul2_plain(a, b, case["c"], q, qi))
+        plain_ms = cuda_ms(lambda: plain(*case["args"]), dev, iters=3, warmup=1)
+        elems = pl.rows * pl.n
+        bnd = card.bound(mont_bench.case_bytes(case),
+                         elems * card.int32["mul2" if pl.chained else "mul"])
+        whole = card.k1_whole[pl.vec, pl.chained]
+        whole_ms = elems * whole["int32_per_element"] / card.int32_per_s * 1e3
+        rows.append(dict(shape=case["shape"], plain_ms=plain_ms, library_ms=None,
+                         tile=[pl.threads, mont_kernel.PER_THREAD],
+                         whole_kernel_int32_ms=whole_ms, **t, **bnd))
+        print(f"K1 mont_mul {case['shape']}: {t['ms']:.4f} ms"
+              f"{' (cold L2; warm %.4f)' % t['warm_l2_ms'] if case['cold'] else ''}"
+              f", plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+              f"{bnd['bound_by']} (bytes {bnd['bytes_ms']:.4f}, int32 "
+              f"{bnd['int32_ms']:.4f}; the whole kernel's static count "
+              f"{whole_ms:.4f})")
+    small = cases[-1]
+    host_us = mont_bench.host_us_per_call(lambda: mont_bench.run_case(small), dev)
+    print(f"K1 wrapper host time at {small['shape']}: {host_us:.2f} us per call")
+    check(rows[1]["ms"] < 1.5 * rows[0]["ms"],
+          "the chained product should cost about one product, not two")
     # no PyTorch call computes a Montgomery product mod a 62-bit prime
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                shape="[1,2,65536] x [256,2,65536]", **bnd)
+    return dict(max_abs_err=err[0], wrapper_host_us=host_us, shapes=rows,
+                **rows[0])
 
 
 def _plain_ntt(ctx, x, idx, inverse):

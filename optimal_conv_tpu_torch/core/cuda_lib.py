@@ -88,8 +88,8 @@ def lib() -> ctypes.CDLL:
 
 def _bind(dll: ctypes.CDLL) -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    dll.optconv_mont_mul.argtypes = [p, p, p, p, p, i64, i64, i64, i64,
-                                     i32, p, p, p, p, p, p]
+    # out, a, b, q, qinv, c, the launch description, stream
+    dll.optconv_mont_mul.argtypes = [p] * 8
     dll.optconv_mont_mul.restype = i32
     # in, out, row_limb, q, qinv, tw, ninv; rows, l, batch and limb stride;
     # log_n, inverse, n_pass; two passes of six plan integers; stream

@@ -8,10 +8,11 @@ Montgomery constants that exceed 2^63 (``qinv = -q^{-1} mod 2^64``) are
 stored as their two's-complement int64; products wrap mod 2^64 exactly
 as uint64 products do, so the bits agree with the JAX package's.
 
-``mont_mul`` dispatches on the tensors' device: on the CPU it runs the
-plain version below (schoolbook 32-bit halves, as the JAX package), on
-a CUDA tensor it launches the hand-written kernel of
-``csrc/mont_mul.cu`` (``mont_kernel.mont_mul_cuda``) or raises.
+``mont_mul`` and the chained ``mont_mul2`` dispatch on the tensors'
+device: on the CPU they run the plain versions below (schoolbook 32-bit
+halves, as the JAX package), on a CUDA tensor they launch the
+hand-written kernel of ``csrc/mont_mul.cu``
+(``mont_kernel.mont_mul_cuda``) or raise.
 
 Host-side helpers (prime generation, primitive roots, Montgomery
 constants, CRT) work on Python ints and numpy arrays.
@@ -76,6 +77,22 @@ def mont_mul(a: torch.Tensor, b_mont: torch.Tensor, q: torch.Tensor,
     return mont_kernel.mont_mul_cuda(a, b_mont, q, qinv)
 
 
+def mont_mul2_plain(a: torch.Tensor, b_mont: torch.Tensor, c_mont: torch.Tensor,
+                    q: torch.Tensor, qinv: torch.Tensor) -> torch.Tensor:
+    """(a·b·2^-64)·c·2^-64 mod q as two plain products."""
+    return mont_mul_plain(mont_mul_plain(a, b_mont, q, qinv), c_mont, q, qinv)
+
+
+def mont_mul2(a: torch.Tensor, b_mont: torch.Tensor, c_mont: torch.Tensor,
+              q: torch.Tensor, qinv: torch.Tensor) -> torch.Tensor:
+    """mont_mul(mont_mul(a, b), c) with c constant along the last axis:
+    on the card one pass of the K1 kernel, the intermediate product
+    never written."""
+    if a.device.type == "cpu":
+        return mont_mul2_plain(a, b_mont, c_mont, q, qinv)
+    return mont_kernel.mont_mul_cuda(a, b_mont, q, qinv, c_mont)
+
+
 # ---------------------------------------------------------------------------
 # add / sub / neg (inputs canonically reduced)
 # ---------------------------------------------------------------------------
@@ -95,7 +112,7 @@ def neg_mod(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 def mul_mod(a, b, q, qinv, r2):
     """a·b mod q for two standard-form operands (r2 = 2^128 mod q)."""
-    return mont_mul(mont_mul(a, b, q, qinv), r2, q, qinv)
+    return mont_mul2(a, b, r2, q, qinv)
 
 
 def to_mont(a, q, qinv, r2):

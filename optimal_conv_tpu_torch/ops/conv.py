@@ -203,8 +203,8 @@ def _conv_pack(ctx: CkksContext, c0: torch.Tensor, c1: torch.Tensor,
                                      dtype=torch.int64, device=ctx.device)[:, None],
                         q01, qinv01, r2_01)
     steps = _pack_steps(p.log_n, max_ob, norm)
-    m0 = mm.mont_mul(mm.mont_mul(c0[None], pls, q01, qinv01), c_mont, q01, qinv01)
-    m1 = mm.mont_mul(mm.mont_mul(c1[None], pls, q01, qinv01), c_mont, q01, qinv01)
+    m0 = mm.mont_mul2(c0[None], pls, c_mont, q01, qinv01)
+    m1 = mm.mont_mul2(c1[None], pls, c_mont, q01, qinv01)
     cur0 = ctx._rescale_poly(m0, 1)               # [C, 1, N]
     cur1 = ctx._rescale_poly(m1, 1)
     for stp, ls, jj in steps:

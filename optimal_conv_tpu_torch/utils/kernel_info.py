@@ -6,10 +6,12 @@ Needs the CUDA toolkit (``nvcc``, ``cuobjdump``), not a card.  Prints,
 for every kernel in ``csrc/*.cu``, the registers, spills and shared
 memory that ``nvcc -Xptxas -v`` reports and the opcode mix of its SASS,
 and the 32-bit integer instructions of one NTT butterfly and of one
-Montgomery product: the SASS of a probe kernel that loads (u, v, w),
-does the arithmetic with ``csrc/modarith.cuh`` and stores, less the SASS
-of the same kernel without the arithmetic.  ``chip_smoke.py`` turns that
-count into the kernels' arithmetic bound.
+Montgomery product (single and chained): the SASS of a probe kernel that
+loads (u, v, w), does the arithmetic with ``csrc/modarith.cuh`` and
+stores, less the SASS of the same kernel without the arithmetic.
+``chip_smoke.py`` turns that count into the kernels' arithmetic bound.
+For K1 it also prints the whole kernel's count per element, index
+arithmetic and loads included (``mont_kernel_instructions``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import subprocess
 import sys
 import tempfile
 
-from ..core import cuda_lib
+from ..core import cuda_lib, mont_kernel
 
 PROBE = r"""
 #include <cstdint>
@@ -56,6 +58,13 @@ extern "C" __global__ void probe_mul(uint64_t* x, const uint64_t* w,
   const int i = threadIdx.x;
   const uint64_t u = x[i], v = x[i + 1024], ww = w[i];
   x[i] = u; x[i + 1024] = mont_mul(v, ww, q, qi);
+  x[i + 2048] = ww + q + qi;
+}
+extern "C" __global__ void probe_mul2(uint64_t* x, const uint64_t* w,
+                                      uint64_t q, uint64_t qi) {
+  const int i = threadIdx.x;
+  const uint64_t u = x[i], v = x[i + 1024], ww = w[i];
+  x[i] = u; x[i + 1024] = mont_mul(mont_mul_lazy(v, ww, q, qi), u, q, qi);
   x[i + 2048] = ww + q + qi;
 }
 """
@@ -115,8 +124,9 @@ def int_instructions(ops: collections.Counter) -> int:
 
 def butterfly_instructions() -> dict:
     """32-bit integer-pipe instructions of one forward butterfly, one
-    inverse butterfly and one Montgomery product, from the probe
-    kernels' SASS."""
+    inverse butterfly, one Montgomery product and one chained product
+    (the first lazily reduced, as K1 does it), from the probe kernels'
+    SASS."""
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "probe.cu")
         with open(src, "w") as f:
@@ -126,7 +136,7 @@ def butterfly_instructions() -> dict:
         ops = sass_opcodes(cubin)
     base = int_instructions(ops["probe_copy"])
     out = {}
-    for name in ("fwd", "inv", "mul"):
+    for name in ("fwd", "inv", "mul", "mul2"):
         mix = ops[f"probe_{name}"] - ops["probe_copy"]
         out[name] = dict(
             int32=int_instructions(ops[f"probe_{name}"]) - base,
@@ -135,13 +145,54 @@ def butterfly_instructions() -> dict:
     return out
 
 
-def kernel_reports() -> dict:
-    """Per source file: ptxas' report and the opcode mix per kernel."""
+def mont_kernel_instructions() -> dict:
+    """Whole-kernel SASS counts of every ``mont_mul_kernel`` in
+    ``csrc/mont_mul.cu``: all instructions, the integer-pipe part, the
+    elements one thread handles in a full tile and the integer
+    instructions per element.  The count is static: every instruction
+    of the kernel once, index arithmetic, loads and both arms of its
+    branches included, so it overstates a tile that skips an arm and
+    understates a loop that runs more than once (``per_thread`` is 1
+    for a kernel that is not a template: one element a thread a trip).
+    Keys are (vec, chained) for a template instance
+    ``mont_mul_kernel<VEC, CHAINED>``, else the kernel's name."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "mont_mul.cubin")
+        _compile(str(cuda_lib.CSRC / "mont_mul.cu"), cubin)
+        ops = sass_opcodes(cubin)
+    out = {}
+    for fn, mix in ops.items():
+        if "mont_mul_kernel" not in fn:
+            continue
+        m = re.search(r"mont_mul_kernelILb([01])ELb([01])EE", fn)
+        if m:
+            vec, chained = bool(int(m[1])), bool(int(m[2]))
+            key = (vec, chained)
+            per_thread = mont_kernel.PER_THREAD * (2 if vec else 1)
+        else:
+            key, per_thread = fn, 1
+        int32 = int_instructions(mix)
+        out[key] = dict(instructions=sum(mix.values()), int32=int32,
+                        per_thread=per_thread,
+                        int32_per_element=int32 / per_thread)
+    if not out:
+        raise RuntimeError("no mont_mul_kernel in the SASS of mont_mul.cu")
+    return out
+
+
+def kernel_reports(sass_dir: str | None = None) -> dict:
+    """Per source file: ptxas' report and the opcode mix per kernel.
+    With `sass_dir`, the SASS listing of each source is written there."""
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for src in sorted(cuda_lib.CSRC.glob("*.cu")):
             cubin = os.path.join(tmp, src.stem + ".cubin")
             report = _compile(str(src), cubin)
+            if sass_dir:
+                os.makedirs(sass_dir, exist_ok=True)
+                with open(os.path.join(sass_dir, src.stem + ".sass"), "w") as f:
+                    subprocess.run([_tool("cuobjdump"), "-sass", cubin],
+                                   stdout=f, check=True)
             kernels = {}
             for fn, ops in sass_opcodes(cubin).items():
                 kernels[fn] = dict(instructions=sum(ops.values()),
@@ -152,8 +203,12 @@ def kernel_reports() -> dict:
     return out
 
 
-def main() -> int:
-    info = dict(butterfly=butterfly_instructions(), sources=kernel_reports())
+def main(argv=None) -> int:
+    """`--sass DIR` also writes each source's SASS listing into DIR."""
+    argv = sys.argv[1:] if argv is None else argv
+    sass_dir = argv[argv.index("--sass") + 1] if "--sass" in argv else None
+    info = dict(butterfly=butterfly_instructions(),
+                sources=kernel_reports(sass_dir))
     for name, rep in info["sources"].items():
         print(f"== {name}")
         print("\n".join(rep["ptxas"]))
@@ -161,6 +216,8 @@ def main() -> int:
             print(f"{fn}: {k['instructions']} SASS instructions, "
                   f"{k['int32']} integer; top {k['top']}")
     print(json.dumps({"butterfly": info["butterfly"]}))
+    print(json.dumps({"mont_mul_kernel": {
+        str(k): v for k, v in mont_kernel_instructions().items()}}))
     return 0
 
 

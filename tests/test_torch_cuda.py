@@ -38,9 +38,9 @@ def _residues(mods, shape, rng, dev):
     return torch.from_numpy(out).to(dev)
 
 
-@pytest.mark.parametrize("case", ["same", "row_scalar", "lead_bcast",
-                                  "mid_bcast", "sliced"])
-def test_mont_mul_kernel_equals_plain(dev, case):
+def _mont_case(case, dev):
+    """Operands (a, b, q, qinv) of one call pattern of the Montgomery
+    product, and whether the plan should take 16-byte accesses."""
     rng = np.random.default_rng(1)
     mods = boot_params(12).moduli[:6]
     n = 4096
@@ -48,24 +48,80 @@ def test_mont_mul_kernel_equals_plain(dev, case):
     a = _residues(mods, (6, n), rng, dev)
     b = _residues(mods, (6, n), rng, dev)
     if case == "same":
-        args = (a, b, q, qinv)
-    elif case == "row_scalar":
-        args = (a, r2, q, qinv)
-    elif case == "lead_bcast":           # one ciphertext × C plaintexts
+        return (a, b, q, qinv), True
+    if case == "row_scalar":             # a Montgomery constant per row
+        return (a, r2, q, qinv), True
+    if case == "scalar_a":               # the same, as the first operand
+        return (r2, b, q, qinv), True
+    if case == "lead_bcast":             # one ciphertext × C plaintexts
         bb = _residues(mods, (3, 6, n), rng, dev)
-        args = (a[None], bb, q, qinv)
-    elif case == "mid_bcast":            # basis extension: y[..., None, :, :]
+        return (a[None], bb, q, qinv), True
+    if case == "mid_bcast":              # basis extension: y[..., None, :, :]
         a2 = torch.stack([a, a.flip(-1)])[:, None]            # [2, 1, 6, n]
         bs = torch.stack([b[:, :1] % q[i] for i in range(3)])  # [3, 6, 1]
-        args = (a2, bs, q[:3, None], qinv[:3, None])          # → [2, 3, 6, n]
-    else:                                # non-contiguous row slices
-        args = (a[1::2], b[:3], q[1::2], qinv[1::2])
+        return (a2, bs, q[:3, None], qinv[:3, None]), True    # → [2, 3, 6, n]
+    if case == "rns_extend":             # y[..., j:j+1, :] × [R, 1] → [B, R, n]
+        y = _residues(mods[:4], (5, 4, n), rng, dev)
+        return (y[..., 1:2, :], r2[:3], q[:3], qinv[:3]), True
+    if case == "sliced":                 # non-contiguous row slices
+        return (a[1::2], b[:3], q[1::2], qinv[1::2]), True
+    if case == "scalar_view":            # offset by one element: 8-byte accesses
+        wide = _residues(mods, (6, n + 2), rng, dev)
+        return (wide[:, 1:n + 1], b, q, qinv), False
+    if case == "n2":
+        return (a[:, :2].contiguous(), b[:, :2].contiguous(), q, qinv), True
+    if case == "odd_n":                  # a ragged tile on the scalar path
+        return (a[:, :1031].contiguous(), b[:, :1031].contiguous(), q, qinv), False
+    if case == "long_rows":              # [6, 2^16]: many tiles a row
+        return (_residues(mods, (6, 1 << 16), rng, dev),
+                _residues(mods, (6, 1 << 16), rng, dev), q, qinv), True
+    if case == "streamed":               # more bytes than the L2 holds
+        ct = _residues(mods[:2], (1, 2, 1 << 16), rng, dev)
+        pls = _residues(mods[:2], (40, 2, 1 << 16), rng, dev)
+        return (ct, pls, q[:2], qinv[:2]), True
+    if case == "many_rows":              # more rows than one grid dim holds
+        rows = _residues(mods[:1], (70000, 1, 4), rng, dev)
+        return (rows, r2[:1], q[:1], qinv[:1]), True
+    assert case == "many_dims"           # more unmergeable row dims than four
+    a7 = _residues(mods[:2], (2, 1, 2, 1, 2, 1, 2, 64), rng, dev)
+    b7 = _residues(mods[:2], (1, 2, 1, 2, 1, 2, 2, 64), rng, dev)
+    return (a7, b7, q[:2], qinv[:2]), True
+
+
+MONT_CASES = ["same", "row_scalar", "lead_bcast", "mid_bcast", "sliced",
+              "scalar_a", "rns_extend", "scalar_view", "n2", "odd_n",
+              "long_rows", "streamed", "many_rows", "many_dims"]
+
+
+@pytest.mark.parametrize("case", MONT_CASES)
+def test_mont_mul_kernel_equals_plain(dev, case):
+    args, vec = _mont_case(case, dev)
+    if case != "many_dims":
+        pl = mont_kernel.plan(*mont_kernel.describe(*args))
+        assert pl.vec == vec
+        assert pl.threads == mont_kernel.THREADS
     mont_kernel.STATS.reset()
     got = mm.mont_mul(*args)
     assert mont_kernel.STATS.launches == 1
     want = mm.mont_mul_plain(*args)
     assert got.shape == want.shape
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["lead_bcast", "scalar_view", "odd_n",
+                                  "streamed", "many_dims"])
+def test_mont_mul2_kernel_equals_plain(dev, case):
+    """The chained product is one launch and equals two plain products."""
+    (a, b, q, qinv), _ = _mont_case(case, dev)
+    rng = np.random.default_rng(2)
+    c = torch.from_numpy(np.array(
+        [[int(rng.integers(0, int(m)))] for m in q[:, 0].tolist()])).to(dev)
+    c[0, 0] = q[0, 0] - 1
+    mont_kernel.STATS.reset()
+    got = mm.mont_mul2(a, b, c, q, qinv)
+    assert mont_kernel.STATS.launches == 1
+    assert mont_kernel.STATS.plain_calls == 0
+    assert torch.equal(got, mm.mont_mul2_plain(a, b, c, q, qinv))
 
 
 @pytest.mark.parametrize("log_n", [3, 8, 9, 10, 11, 12, 13, 14, 15, 16])
@@ -137,6 +193,10 @@ def test_kernels_reject_bad_input(dev):
     a = torch.zeros(2, 1024, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
         mont_kernel.mont_mul_cuda(a, a, q, qinv)
+    with pytest.raises(TypeError):
+        mont_kernel.mont_mul_cuda(q, q, q, qinv.cpu())
+    with pytest.raises(ValueError):      # q must be constant along a row
+        mont_kernel.mont_mul_cuda(a.long(), a.long(), a.long(), qinv)
     ctx = NttContext(mods, 10, dev)
     with pytest.raises(ValueError):
         ctx.ntt(torch.zeros(2, 512, dtype=torch.int64, device=dev))

@@ -100,6 +100,35 @@ def test_ops_bit_exact_all_moduli(seed):
         np.testing.assert_array_equal(_u(got), np.asarray(want), err_msg=name)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mont_mul2_bit_exact_all_moduli(seed):
+    """The chained product's plain version equals the JAX package's
+    mont_mul applied twice, on every modulus of boot_params(12), with 0
+    and q-1 among a, b and the per-limb constant c."""
+    mods = jboot(12).moduli
+    assert tparams.boot_params(12).moduli == mods
+    rng = np.random.default_rng(100 + seed)
+    qs = np.array(mods, dtype=np.uint64)
+    a = np.stack([rng.integers(0, q, N, dtype=np.uint64) for q in mods])
+    b = np.stack([rng.integers(0, q, (3, N), dtype=np.uint64) for q in mods],
+                 axis=1)                                          # [3, L, N]
+    a[:, :3] = [0, 0, 1]
+    a[:, 3:6] = (qs - 1)[:, None]
+    b[..., :3] = np.stack([np.zeros_like(qs), qs - 1, qs - 1], axis=1)
+    b[..., 3:6] = np.stack([np.zeros_like(qs), qs - 1, np.ones_like(qs)], axis=1)
+    c = np.stack([rng.integers(0, q, 1, dtype=np.uint64) for q in mods])
+    c[0], c[1] = 0, qs[1] - 1
+    q = qs[:, None]
+    qi = np.array([jmm.mont_qinv(x) for x in mods], dtype=np.uint64)[:, None]
+    J = jnp.asarray
+    tq, tqi, _, _ = mm.limb_tables(mods, "cpu")
+    want = jmm.mont_mul(jmm.mont_mul(J(a)[None], J(b), J(q), J(qi)), J(c), J(q),
+                        J(qi))
+    for fn in (mm.mont_mul2_plain, mm.mont_mul2):
+        got = fn(_t(a)[None], _t(b), _t(c), tq, tqi)
+        np.testing.assert_array_equal(_u(got), np.asarray(want))
+
+
 def test_mont_mul_equals_pallas_kernel():
     """The plain mont_mul equals the TPU kernel (Pallas interpret mode),
     one modulus per bit size of the chain."""
