@@ -12,10 +12,20 @@ the port's main path at logN=16 on the Go fork's modulus chain:
   * ``conv 3 i 2`` for the four geometries 128²×4 … 16²×256, each
     output against the numpy conv to 2e-3;
   * the ResNet-20 CIFAR-10 FC head (in_wid 8, 64 channels at stride 16,
-    kw 7, 10 logits, seeded weights) against numpy to 2e-3, same argmax.
+    kw 7, 10 logits, seeded weights) against numpy to 2e-3, same argmax;
+  * the evaluator on slot-encoded ciphertexts of 2^15 seeded values:
+    ``mul_ct`` + ``rescale`` at level 15 against the product of the slot
+    vectors (1e-3), ``rotate``, eight hoisted rotations at levels 15 and
+    2 and ``conjugate`` against ``np.roll`` / ``np.conj`` (1e-4 at the
+    99.9th percentile, 1e-3 at the worst slot: ``evaluator_path`` says
+    why), and ``mul_plain`` + ``rescale`` with a slot-encoded mask (1e-4);
+  * the encrypted activation: ``ops.relu.eval_relu`` from level 15 down
+    the chain's eleven 30-bit ReLU levels to the repack level 4, scale
+    within a bit of 2^30, against ``relu_np`` to 2e-2 everywhere and
+    5e-3 where |x| > 0.05.
 
-Every kernel's launch counter is zeroed just before the main path and
-must be nonzero after it, with no plain-version call.  Beside each
+Every kernel's launch counter is zeroed just before each of these three
+paths and must be nonzero after it, with no plain-version call.  Beside each
 kernel's time stands its bound: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its 32-bit integer
 instructions (counted from the compiled arithmetic by
@@ -23,11 +33,13 @@ instructions (counted from the compiled arithmetic by
 clock at the card's maximum SM clock.  K1 is held to its plain version
 on every access path of its kernel (16-byte and 8-byte, column scalars,
 broadcast and sliced rows, the chained product) and timed at five
-main-path shapes (``utils.mont_bench.timed_cases``), with its wrapper's
-host time per call.  After the main path one warm
-conv at 16²×256 is split into host-side kernel encoding and the
-device-side ``conv_then_pack``, whose kernels are listed by
-``torch.profiler``.  Any failed check raises and the script exits
+shapes of the conv and two of a level-15 ct × ct product
+(``utils.mont_bench.timed_cases`` / ``evaluator_cases``), with its
+wrapper's host time per call; K2/K3 at the conv's shapes and at the 84,
+22, 5 and 1 rows of the ReLU's key switches and rescales.  After the
+paths one warm conv at 16²×256 is split into host-side kernel encoding
+and the device-side ``conv_then_pack``, and one warm ``eval_relu`` is
+timed; ``torch.profiler`` lists the device kernels of both.  Any failed check raises and the script exits
 nonzero.  The last lines are a JSON object of per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it fails at once.
@@ -53,6 +65,7 @@ from optimal_conv_tpu_torch.core.ntt import NttContext, _ntt_fwd, _ntt_inv
 from optimal_conv_tpu_torch.models.resnet import (ResNetConfig,
                                                   encrypt_fc_input, fc_conv)
 from optimal_conv_tpu_torch.ops import conv as convops
+from optimal_conv_tpu_torch.ops.relu import eval_relu, relu_np
 from optimal_conv_tpu_torch.utils import kernel_info, mont_bench
 from optimal_conv_tpu_torch.utils.timing import cuda_ms, cuda_ms_cold
 
@@ -149,7 +162,8 @@ def _mont_equal(what, args, c, vec, err):
 
 def check_mont(dev, p, rng, card):
     """Phase 2: K1 against its plain version on the card, on every access
-    path of the kernel, then its time at five main-path shapes."""
+    path of the kernel, then its time at the conv's five shapes and the
+    two of a level-15 ct × ct product."""
     n = p.n
     qs = p.q_moduli
     q, qinv, r2, _ = mm.limb_tables(qs, dev)
@@ -192,7 +206,7 @@ def check_mont(dev, p, rng, card):
     _mont_equal("mont_mul2 [1,2,N] x [4,2,N] x [2,1]", (ct, pls[:4], q01, qi01),
                 cases[1]["c"], True, err)
     rows = []
-    for case in cases:
+    for case in cases + mont_bench.evaluator_cases(p, rng, dev):
         _mont_equal(case["shape"], case["args"], case["c"], True, err)
         pl = mont_kernel.plan(*mont_kernel.describe(*case["args"], case["c"]))
         t = mont_bench.time_case(case, dev)
@@ -281,6 +295,20 @@ def check_ntt(dev, p, rng, card):
           == (len(qp) * n, n), "the P-row slice should be read in place")
     _both_ways(ctx, view, qp[nq:], "the strided P rows", err)
     check(torch.equal(acc, keep), "the transform wrote into its input")
+    # the ReLU path's rows: the key-switch digits of levels 15 and 5
+    # (4 x 21 and 2 x 11 rows), the P rows of a level-15 accumulator read
+    # in place, and the top limb of a level-15 polynomial (a rescale)
+    for level, beta in ((15, 4), (5, 2)):
+        qpl = p.qp_idx(level)
+        dig = residues([p.moduli[i] for i in qpl], (beta,), n, rng, dev)
+        _both_ways(ctx, dig, qpl, f"{beta} digits of level {level}", err)
+    qp15 = p.qp_idx(15)
+    acc15 = residues([p.moduli[i] for i in qp15], (), n, rng, dev)
+    check(ntt_kernel._row_strides(acc15[16:]) == (0, n)
+          and ntt_kernel._row_strides(acc15[15:16]) == (0, n),
+          "row slices of a polynomial should be read in place")
+    _both_ways(ctx, acc15[16:], qp15[16:], "the 5 P rows of [21, N]", err)
+    _both_ways(ctx, acc15[15:16], (15,), "the top limb of level 15", err)
     # every branch of the plan: one launch (k mod 3 = 0, 1, 2, and the
     # largest ring that fits a block) and two launches with a short
     # column pass.  The chain's primes are 1 mod 2^17, so they carry
@@ -303,9 +331,15 @@ def check_ntt(dev, p, rng, card):
     # pack stage of conv 3 3 (128 ciphertexts x 6 limbs of QP), one kernel
     # plaintext ([2,N], Encoder.encode_coeffs) and all 33 limbs.  The two
     # small ones are timed with a cold L2, as their callers find it.
+    # Then the ReLU path's: the digits of levels 15 and 5, the P rows
+    # of a mod-down and the top limb of a rescale.
     shapes = [("[128,1,6,65536]", qp, (128, 1), False),
               ("[2,65536]", (0, 1), (), True),
-              ("[33,65536]", tuple(range(len(p.moduli))), (), True)]
+              ("[33,65536]", tuple(range(len(p.moduli))), (), True),
+              ("[4,21,65536]", qp15, (4,), False),
+              ("[2,11,65536]", p.qp_idx(5), (2,), False),
+              ("[5,65536]", p.p_idx(), (), True),
+              ("[1,65536]", (15,), (), True)]
     out = {"ntt_fwd": {}, "ntt_inv": {}}
     for shape, idx, lead, cold in shapes:
         x = residues([p.moduli[i] for i in idx], lead, n, rng, dev)
@@ -402,8 +436,6 @@ def where_time_goes(dev, card):
     """One warm conv 3 3 (16^2 x 256) split into host-side kernel encoding
     and the device-side conv_then_pack, with the device kernels of one
     conv_then_pack by name.  Runs after the launch counts are read."""
-    from torch.profiler import ProfilerActivity, profile
-
     p = boot_params(16)
     ctx = CkksContext(p, dev, seed=0)
     rng = np.random.default_rng(3)
@@ -434,9 +466,23 @@ def where_time_goes(dev, card):
         torch.cuda.synchronize(dev)
         prep_ms.append((t1 - t0) * 1e3)
         pack_ms.append((time.perf_counter() - t1) * 1e3)
+    wall, busy, groups = _profile_groups(lambda: pack(pl), dev)
+    print(f"conv 3 3 warm, {card}: prep_ker ms {[round(t, 1) for t in prep_ms]}"
+          f", conv_then_pack ms {[round(t, 1) for t in pack_ms]}")
+    print(f"conv_then_pack under the profiler: wall {wall:.2f} ms, device "
+          f"kernels {busy:.3f} ms (busy {100 * busy / wall:.1f}%): "
+          + json.dumps(groups))
+
+
+def _profile_groups(fn, dev):
+    """One call of fn() under ``torch.profiler``: → (wall ms, device
+    kernel ms, {group: {launches, ms}}) with the device kernels grouped
+    into K1, K2, K3 and PyTorch's own."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pack(pl)
+        fn()
         torch.cuda.synchronize(dev)
         wall = (time.perf_counter() - t0) * 1e3
     groups: dict = {}
@@ -450,15 +496,192 @@ def where_time_goes(dev, card):
         g = groups.setdefault(key, [0, 0.0])
         g[0] += 1
         g[1] += getattr(ev, "device_time", None) or getattr(ev, "cuda_time", 0)
-    for g in groups.values():
-        g[1] /= 1e3                        # microseconds to milliseconds
-    busy = sum(g[1] for g in groups.values())
-    print(f"conv 3 3 warm, {card}: prep_ker ms {[round(t, 1) for t in prep_ms]}"
-          f", conv_then_pack ms {[round(t, 1) for t in pack_ms]}")
-    print(f"conv_then_pack under the profiler: wall {wall:.2f} ms, device "
-          f"kernels {busy:.3f} ms (busy {100 * busy / wall:.1f}%): "
-          + json.dumps({k: dict(launches=g[0], ms=round(g[1], 3))
-                        for k, g in groups.items()}))
+    out = {k: dict(launches=g[0], ms=round(g[1] / 1e3, 3))   # from microseconds
+           for k, g in groups.items()}
+    return wall, sum(g[1] for g in groups.values()) / 1e3, out
+
+
+def _slot_err(ctx, ct, want) -> np.ndarray:
+    got = ctx.decrypt_decode_slots(ct)
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          "decoded slots: bad shape or values")
+    return np.abs(got - want)
+
+
+def _wall_ms(fn, dev, iters: int) -> float:
+    """Host-clock ms of one fn() over `iters` calls ending in a synchronise."""
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _counts_of(fn, dev) -> dict:
+    """{kernel: launches} of one call of fn(), by the wrappers' counters."""
+    before = [s.launches for s in STATS]
+    fn()
+    torch.cuda.synchronize(dev)
+    return {s.name: s.launches - b for s, b in zip(STATS, before)}
+
+
+HOISTED_ROTS = [1, 2, 3, 4, 5, 6, 7, 8]
+
+
+def evaluator_path(ctx, dev):
+    """Phase 6: the evaluator ops on slot-encoded ciphertexts of 2^15
+    seeded values at logN=16, each against numpy on the slot vectors."""
+    p = ctx.params
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-1, 1, p.slots) + 1j * rng.uniform(-1, 1, p.slots)
+    y = rng.uniform(-1, 1, p.slots)
+    enc = ctx.encoder
+    a = ctx.encrypt(enc.encode_slots(x, p.scale, 15))
+    b = ctx.encrypt(enc.encode_slots(y, p.scale, 15))
+    # Bars: 1e-3 for a product and 1e-4 for a rotation or a conjugate, on
+    # values in [-1, 1] at scale 2^30, are the JAX package's own at
+    # logN <= 12.  At logN = 16 a key switch that no rescale follows meets
+    # 1e-4 on all but a few slots (held at the 99.9th percentile) and
+    # reaches 1.8e-4 to 2.6e-4 on slot 0 (measured on an H100, and the same
+    # in the JAX package, whose residues the port's equal): the mod-down's
+    # basis extension floors, which biases every coefficient by 0.5 + u,
+    # u <= 5, and the slot whose root lies nearest 1 sums that bias over
+    # all N coefficients, 2N/pi times it.  The bias grows with N (2.6e-6 at
+    # logN 10, 2.6e-5 at 13); a rescale divides it away.  So the maximum is
+    # held to 1e-3 here.
+    errs = {}
+    prod = ctx.rescale(ctx.mul_ct(a, b))
+    check(prod.level == 14, f"mul_ct + rescale landed at level {prod.level}")
+    errs["mul_ct+rescale, level 15"] = (_slot_err(ctx, prod, x * y), 1e-3, 1e-3)
+    errs["conjugate, level 15"] = (_slot_err(ctx, ctx.conjugate(a), np.conj(x)),
+                                   1e-3, 1e-4)
+    mask = (np.arange(p.slots) % 3 == 0).astype(np.float64)
+    masked = ctx.rescale(ctx.mul_plain(a, enc.encode_slots(
+        mask, float(p.q_moduli[15]), 15)))
+    errs["mul_plain+rescale with a mask, level 15"] = (
+        _slot_err(ctx, masked, x * mask), 1e-4, 1e-4)
+    for level in (15, 2):
+        at = ctx.drop_level(a, 15 - level)
+        errs[f"rotate by 1, level {level}"] = (
+            _slot_err(ctx, ctx.rotate(at, 1), np.roll(x, -1)), 1e-3, 1e-4)
+        hoisted = ctx.rotate_hoisted(at, HOISTED_ROTS)
+        check(sorted(hoisted) == HOISTED_ROTS, "rotate_hoisted: missing rotations")
+        errs[f"rotate_hoisted x{len(HOISTED_ROTS)}, level {level}"] = (
+            np.maximum.reduce([_slot_err(ctx, ct, np.roll(x, -k))
+                               for k, ct in hoisted.items()]), 1e-3, 1e-4)
+    for what, (err, bar, bar_999) in errs.items():
+        print(f"evaluator {what}: max err {err.max():.3e} on slot "
+              f"{int(err.argmax())} (bar {bar:g}), 99.9th percentile "
+              f"{np.percentile(err, 99.9):.3e} (bar {bar_999:g}), median "
+              f"{np.median(err):.3e}")
+    for what, (err, bar, bar_999) in errs.items():
+        check(err.max() < bar, f"evaluator {what}: max err {err.max()} >= {bar}")
+        check(np.percentile(err, 99.9) < bar_999, f"evaluator {what}: 99.9th "
+              f"percentile {np.percentile(err, 99.9)} >= {bar_999}")
+    return a, b
+
+
+def evaluator_times(ctx, dev, card, a, b):
+    """Warm host-clock times and launches of the evaluator ops (keys
+    made).  Runs after the launch counts of the paths are read."""
+    for level in (15, 2):
+        at, bt = ctx.drop_level(a, 15 - level), ctx.drop_level(b, 15 - level)
+        ops = {"mul_ct": lambda: ctx.mul_ct(at, bt),
+               "rescale": lambda: ctx.rescale(at),
+               "rotate": lambda: ctx.rotate(at, 1),
+               "rotate_hoisted x8": lambda: ctx.rotate_hoisted(at, HOISTED_ROTS)}
+        for name, fn in ops.items():
+            ms = _wall_ms(fn, dev, iters=10)
+            counts = _counts_of(fn, dev)
+            wall, busy, _ = _profile_groups(fn, dev)
+            print(f"evaluator {name} at level {level}, {card}: {ms:.3f} ms warm "
+                  f"wall a call; device kernels {busy:.3f} ms of {wall:.3f} ms "
+                  f"under the profiler; launches {json.dumps(counts)}")
+        # ms is the last op's, the eight hoisted rotations
+        print(f"evaluator hoisted rotations at level {level}, {card}: "
+              f"{len(HOISTED_ROTS) / ms * 1e3:.1f} per second")
+
+
+def relu_inputs(ctx):
+    p = ctx.params
+    x = np.random.default_rng(6).uniform(-1, 1, p.slots)
+    top = p.boot_layout["relu"][1] - 1
+    return x, ctx.encrypt(ctx.encoder.encode_slots(x, p.scale, top))
+
+
+def relu_path(ctx, dev):
+    """Phase 7: the encrypted activation.  2^15 values uniform in [-1, 1]
+    at the top ReLU level of the chain, eval_relu, decrypt, decode,
+    against relu_np."""
+    p = ctx.params
+    x, ct = relu_inputs(ctx)
+    check(ct.level == 15, f"the ReLU starts at level {ct.level}, not 15")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = eval_relu(ctx, ct, alpha=0.0)
+    torch.cuda.synchronize(dev)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    coeffs = ctx.decrypt_to_coeffs(out)
+    t1 = time.perf_counter()
+    got = ctx.encoder.decode_slots(coeffs, out.scale)
+    decode_ms = (time.perf_counter() - t1) * 1e3
+    check(got.shape == (p.slots,) and np.isfinite(got).all(),
+          "eval_relu: bad output")
+    err = np.abs(got.real - relu_np(x))
+    worst, interior = float(err.max()), float(err[np.abs(x) > 0.05].max())
+    print(f"eval_relu: level {ct.level} -> {out.level}, log2(scale) "
+          f"{np.log2(out.scale):.6f}, max err {worst:.3e} (bar 2e-2), for "
+          f"|x| > 0.05 {interior:.3e} (bar 5e-3), imaginary part "
+          f"{float(np.abs(got.imag).max()):.3e}; first call {first_ms:.1f} ms "
+          f"(keys made), decrypt {1e3 * (t1 - t0):.1f} ms, host CRT decode of "
+          f"{coeffs.shape[0]} limbs {decode_ms:.1f} ms")
+    check(out.level == p.boot_layout["repack"] == 4,
+          f"eval_relu landed at level {out.level}, not the repack level 4")
+    check(abs(np.log2(out.scale) - p.log_scale) < 1.01,
+          f"eval_relu: scale 2^{np.log2(out.scale)} is not within a bit of 2^30")
+    check(worst < 2e-2, f"eval_relu: max err {worst} >= 2e-2")
+    check(interior < 5e-3, f"eval_relu: max err for |x| > 0.05 {interior} >= 5e-3")
+
+
+def relu_times(ctx, dev, card):
+    """Warm eval_relu (keys made): wall time, launches by rows, the device
+    kernels by group and the busy share.  Runs after the counts are read."""
+    _, ct = relu_inputs(ctx)
+    walls = [_wall_ms(lambda: eval_relu(ctx, ct), dev, iters=1) for _ in range(5)]
+    print(f"eval_relu warm, {card}: wall ms {[round(t, 2) for t in walls]}")
+    for s in STATS:
+        s.reset()
+    eval_relu(ctx, ct)
+    _read_counts("one warm eval_relu", dev)
+    wall, busy, groups = _profile_groups(lambda: eval_relu(ctx, ct), dev)
+    print(f"eval_relu under the profiler: wall {wall:.2f} ms, device kernels "
+          f"{busy:.3f} ms (busy {100 * busy / wall:.1f}%): {json.dumps(groups)}")
+    lo, hi = ctx.params.boot_layout["relu"]
+    rlk = [k for tag, k in ctx.switching_keys.items()
+           if tag[0] == "rlk" and lo <= k.level < hi]
+    print(f"relinearisation keys of the ReLU levels {lo}-{hi - 1}: "
+          f"{sum(k.d0.numel() * 16 for k in rlk) / 2**30:.3f} GiB in "
+          f"{len(rlk)} keys")
+
+
+def _read_counts(path: str, dev) -> dict:
+    """The wrappers' counters after one path: every kernel launched, no
+    plain version called.  Then zeroed for the next path."""
+    torch.cuda.synchronize(dev)
+    counts = {s.name: (s.launches, s.plain_calls) for s in STATS}
+    by_rows = {s.name: {str(r): c for r, c in sorted(s.by_rows.items())}
+               for s in STATS}
+    print(f"{path} launches / plain calls: {counts}")
+    print(f"{path} launches by rows of the call: {json.dumps(by_rows)}")
+    for name, (launches, plain) in counts.items():
+        check(launches > 0, f"{name}: no launch on the {path}")
+        check(plain == 0, f"{name}: plain version ran on the {path}")
+    for s in STATS:
+        s.reset()
+    return dict(launches={k: v[0] for k, v in counts.items()}, by_rows=by_rows)
 
 
 def main() -> int:
@@ -485,18 +708,25 @@ def main() -> int:
         s.reset()
     torch.cuda.reset_peak_memory_stats(dev)
     lat = main_path(dev, card)
-    torch.cuda.synchronize(dev)
-    counts = {s.name: (s.launches, s.plain_calls) for s in STATS}
-    by_rows = {s.name: {str(r): c for r, c in sorted(s.by_rows.items())}
-               for s in STATS}
-    print(f"main path launches / plain calls: {counts}")
-    print(f"main path launches by rows of the call: {json.dumps(by_rows)}")
+    paths = {"conv path": _read_counts("conv path", dev)}
     print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
           f" GiB; latencies ms {json.dumps(lat)}")
-    for name, (launches, plain) in counts.items():
-        check(launches > 0, f"{name}: no launch on the main path")
-        check(plain == 0, f"{name}: plain version ran on the main path")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ctx = CkksContext(p, dev, seed=1)
+    for s in STATS:
+        s.reset()
+    a, b = evaluator_path(ctx, dev)
+    paths["evaluator path"] = _read_counts("evaluator path", dev)
+    relu_path(ctx, dev)
+    paths["relu path"] = _read_counts("relu path", dev)
+    print(f"peak device memory after the evaluator and the ReLU "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
     where_time_goes(dev, card)
+    evaluator_times(ctx, dev, card, a, b)
+    relu_times(ctx, dev, card)
 
     src = "optimal_conv_tpu_torch/csrc/"
     rows = [dict(name="mont_mul", route="cuda", source=src + "mont_mul.cu",
@@ -508,8 +738,12 @@ def main() -> int:
                  replaces="optimal_conv_tpu/core/pallas_ntt.py:199",
                  **k23["ntt_inv"])]
     for row in rows:
-        row["launches"] = counts[row["name"]][0]
-        row["launches_by_rows"] = by_rows[row["name"]]
+        name = row["name"]
+        row["launches"] = sum(c["launches"][name] for c in paths.values())
+        row["launches_by_path"] = {k: c["launches"][name]
+                                   for k, c in paths.items()}
+        row["launches_by_rows"] = {k: c["by_rows"][name]
+                                   for k, c in paths.items()}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

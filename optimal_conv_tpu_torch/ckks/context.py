@@ -1,11 +1,17 @@
-"""CKKS scheme context: keys, encryption and the evaluator ops of the
-coefficient-packed convolution.
+"""CKKS scheme context: keys, encryption and the evaluator.
 
-Counterpart of the subset of ``optimal_conv_tpu/ckks/context.py`` that
-the conv path runs: the sparse ternary secret key, symmetric
-encryption and decryption, add/sub, monomial products, rescale, and
-hybrid RNS key switching with special primes P behind Galois
-automorphisms.
+Counterpart of ``optimal_conv_tpu/ckks/context.py``: the sparse ternary
+secret key, symmetric encryption and decryption, the arithmetic
+(add/sub/neg, plaintext, constant and ct×ct products with immediate
+relinearisation), level and scale management (rescale, drop_level,
+set_scale), monomial products, and hybrid RNS key switching with special
+primes P behind Galois automorphisms: single rotations, hoisted
+rotations (decompose once, rotate many) and their lazy form that leaves
+the division by P to the caller.  The JAX package's per-level compiled
+closures are ordinary methods that take the level here; its key cache
+with eviction and its seed-compressed keys are not ported: keys are made
+at first use, at the level where they are used, and stay in
+``switching_keys`` with both halves stored.
 
 Polynomials are ``[..., l+1, N]`` int64 tensors on the context's device,
 NTT (bit-reversed) domain and standard form.  The evaluator functions
@@ -72,7 +78,12 @@ class CkksContext:
         self._sk_ints = np.asarray(s, dtype=np.int64)
         res = mm.centered_to_residues(self._sk_ints, p.moduli)
         self.sk_coeff = torch.from_numpy(res).to(self.device)      # [LQP, N]
-        self.sk_ntt = self.ntt.ntt(self.sk_coeff, tuple(range(len(p.moduli))))
+        all_idx = tuple(range(len(p.moduli)))
+        self.sk_ntt = self.ntt.ntt(self.sk_coeff, all_idx)
+        # s² for relinearisation: the negacyclic ring product is the
+        # pointwise product in the NTT domain
+        q, qinv, r2, _ = self.ntt.tabs(all_idx)
+        self.sk2_ntt = mm.mul_mod(self.sk_ntt, self.sk_ntt, q, qinv, r2)
         self.switching_keys: dict = {}
 
     def _key_seed(self, tag) -> int:
@@ -124,6 +135,10 @@ class CkksContext:
     def decrypt_decode_coeffs(self, ct: Ciphertext) -> np.ndarray:
         return self.encoder.decode_coeffs(self.decrypt_to_coeffs(ct), ct.scale)
 
+    def decrypt_decode_slots(self, ct: Ciphertext, log_slots=None) -> np.ndarray:
+        return self.encoder.decode_slots(self.decrypt_to_coeffs(ct), ct.scale,
+                                         log_slots)
+
     # ------------------------------------------------------------------
     # switching keys
     # ------------------------------------------------------------------
@@ -164,6 +179,17 @@ class CkksContext:
         b = mm.add_mod(mm.sub_mod(e_ntt, a_s, q), ps, q)
         return SwitchingKey(mm.to_mont(b, q, qinv, r2), a_mont, level)
 
+    def relin_key(self, level: int) -> SwitchingKey:
+        """Switching key s² → s at `level` (generated on first use)."""
+        key = ("rlk", level)
+        swk = self.switching_keys.get(key)
+        if swk is None:
+            swk = self.gen_switching_key(
+                self._rows(self.sk2_ntt, self.params.qp_idx(level)), level,
+                seed=self._key_seed(key))
+            self.switching_keys[key] = swk
+        return swk
+
     def galois_key(self, g: int, level: int) -> SwitchingKey:
         """Switching key φ_g(s) → s at `level` (generated on first use)."""
         p = self.params
@@ -180,6 +206,28 @@ class CkksContext:
                 self.ntt.tabs(qp)[0])
             swk = self.gen_switching_key(self.ntt.ntt(s_g, qp), level,
                                          seed=self._key_seed(key))
+            self.switching_keys[key] = swk
+        return swk
+
+    def rot_key(self, k: int, level: int) -> SwitchingKey:
+        return self.galois_key(nttmod.rot_to_galois(k, self.params.log_n), level)
+
+    def galois_key_hoisted(self, g: int, level: int) -> SwitchingKey:
+        """φ_g's switching key pre-permuted by φ_g⁻¹ in the NTT domain.
+
+        Pointwise, φ(d)·k = φ(d · φ⁻¹(k)): the hoisted inner product then
+        reads the shared unpermuted digits, and only the accumulator pair
+        is permuted per rotation, not the β digits."""
+        p = self.params
+        g = g % (2 * p.n)
+        key = ("galh", g, level)
+        swk = self.switching_keys.get(key)
+        if swk is None:
+            base = self.galois_key(g, level)
+            perm_inv = self.galois_perm(pow(g, -1, 2 * p.n))
+            swk = SwitchingKey(nttmod.apply_galois_ntt(base.d0, perm_inv),
+                               nttmod.apply_galois_ntt(base.d1, perm_inv),
+                               level)
             self.switching_keys[key] = swk
         return swk
 
@@ -218,18 +266,27 @@ class CkksContext:
         return mm.mont_mul(diff, self.tables.p_inv_mont(level), qq, qqinv)
 
     def _ks_core(self, digits: torch.Tensor, d0: torch.Tensor,
-                 d1: torch.Tensor, level: int):
-        """Coeff-domain digits [..., beta, l+1+P, N] × key → (ks0, ks1)
-        on Q_level (JAX: ``_ks_core_builder``)."""
+                 d1: torch.Tensor, level: int, input_ntt: bool = False,
+                 lazy: bool = False):
+        """Digits [..., beta, l+1+P, N] × key → (ks0, ks1) on Q_level
+        (JAX: ``_ks_core_builder``).
+
+        input_ntt: the digits are already in the NTT domain (hoisted
+        rotations transform them once per ciphertext, not once per
+        rotation); else they are coefficient-domain and transformed here.
+        lazy: no mod-down; the [..., l+1+P, N] QP accumulators are
+        returned, and a caller that sums several divides by P once."""
         qp = self.params.qp_idx(level)
         q, qinv = self.ntt.tabs(qp)[:2]
-        dig = self.ntt.ntt(digits, qp)
+        dig = digits if input_ntt else self.ntt.ntt(digits, qp)
         t0 = mm.mont_mul(dig, d0, q, qinv)
         t1 = mm.mont_mul(dig, d1, q, qinv)
         acc0, acc1 = t0[..., 0, :, :], t1[..., 0, :, :]
         for d in range(1, d0.shape[0]):
             acc0 = mm.add_mod(acc0, t0[..., d, :, :], q)
             acc1 = mm.add_mod(acc1, t1[..., d, :, :], q)
+        if lazy:
+            return acc0, acc1
         return self._mod_down(acc0, level), self._mod_down(acc1, level)
 
     def keyswitch(self, c1: torch.Tensor, level: int, swk: SwitchingKey):
@@ -238,7 +295,7 @@ class CkksContext:
         return self._ks_core(self._decompose(c1, level), swk.d0, swk.d1, level)
 
     # ------------------------------------------------------------------
-    # evaluator
+    # evaluator: arithmetic
     # ------------------------------------------------------------------
 
     def _q(self, level: int) -> torch.Tensor:
@@ -255,6 +312,83 @@ class CkksContext:
         q = self._q(a.level)
         return Ciphertext(mm.sub_mod(a.c0, b.c0, q), mm.sub_mod(a.c1, b.c1, q),
                           level=a.level, scale=a.scale)
+
+    def neg(self, a: Ciphertext) -> Ciphertext:
+        q = self._q(a.level)
+        return Ciphertext(mm.neg_mod(a.c0, q), mm.neg_mod(a.c1, q),
+                          level=a.level, scale=a.scale)
+
+    def add_plain(self, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+        """pt must be in standard form (is_mont=False) at a's level and scale."""
+        if pt.is_mont or pt.level != a.level:
+            raise ValueError("add_plain needs a standard-form plaintext at "
+                             f"level {a.level}, got level {pt.level}, "
+                             f"is_mont={pt.is_mont}")
+        _same_level_scale(a, pt)
+        return Ciphertext(mm.add_mod(a.c0, pt.poly, self._q(a.level)), a.c1,
+                          level=a.level, scale=a.scale)
+
+    def _const_col(self, c: int, level: int) -> torch.Tensor:
+        """The integer c mod each q_i of `level`, as an [l+1, 1] column."""
+        return torch.tensor([c % q for q in self.params.q_moduli[: level + 1]],
+                            dtype=torch.int64, device=self.device)[:, None]
+
+    def add_const(self, a: Ciphertext, const: float) -> Ciphertext:
+        """Add a scalar to every slot, encoded at the ciphertext's own scale."""
+        vals = self._const_col(int(round(const * a.scale)), a.level)
+        return Ciphertext(mm.add_mod(a.c0, vals, self._q(a.level)), a.c1,
+                          level=a.level, scale=a.scale)
+
+    def mul_plain(self, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+        """ct × pt (pt in Montgomery form).  Scales multiply; no rescale."""
+        if not pt.is_mont or pt.level != a.level:
+            raise ValueError("mul_plain needs a Montgomery-form plaintext at "
+                             f"level {a.level}, got level {pt.level}, "
+                             f"is_mont={pt.is_mont}")
+        q, qinv = self.ntt.tabs(self.params.q_idx(a.level))[:2]
+        return Ciphertext(mm.mont_mul(a.c0, pt.poly, q, qinv),
+                          mm.mont_mul(a.c1, pt.poly, q, qinv),
+                          level=a.level, scale=a.scale * pt.scale)
+
+    def mul_scalar_int(self, a: Ciphertext, c: int) -> Ciphertext:
+        """Multiply the values by an exact integer; the scale is unchanged."""
+        q, qinv, r2, _ = self.ntt.tabs(self.params.q_idx(a.level))
+        key = ("scl", c, a.level)
+        cm = self._pt_cache.get(key)
+        if cm is None:
+            cm = mm.to_mont(self._const_col(c, a.level), q, qinv, r2)
+            self._pt_cache[key] = cm
+        return Ciphertext(mm.mont_mul(a.c0, cm, q, qinv),
+                          mm.mont_mul(a.c1, cm, q, qinv),
+                          level=a.level, scale=a.scale)
+
+    def mul_const(self, a: Ciphertext, const: float,
+                  const_scale: float) -> Ciphertext:
+        """Multiply by round(const·const_scale)/const_scale; scale *= const_scale."""
+        out = self.mul_scalar_int(a, int(round(const * const_scale)))
+        return out.with_scale(a.scale * const_scale)
+
+    def mul_ct(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        """ct × ct with immediate relinearisation.  Scales multiply; no
+        rescale."""
+        if a.level != b.level:
+            raise ValueError(f"operands differ: level {a.level}/{b.level}")
+        lvl = a.level
+        q, qinv, r2, _ = self.ntt.tabs(self.params.q_idx(lvl))
+        d0 = mm.mul_mod(a.c0, b.c0, q, qinv, r2)
+        d1 = mm.add_mod(mm.mul_mod(a.c0, b.c1, q, qinv, r2),
+                        mm.mul_mod(a.c1, b.c0, q, qinv, r2), q)
+        d2 = mm.mul_mod(a.c1, b.c1, q, qinv, r2)
+        ks0, ks1 = self.keyswitch(d2, lvl, self.relin_key(lvl))
+        return Ciphertext(mm.add_mod(d0, ks0, q), mm.add_mod(d1, ks1, q),
+                          level=lvl, scale=a.scale * b.scale)
+
+    def square(self, a: Ciphertext) -> Ciphertext:
+        return self.mul_ct(a, a)
+
+    # ------------------------------------------------------------------
+    # evaluator: level and scale management
+    # ------------------------------------------------------------------
 
     def rescale(self, a: Ciphertext) -> Ciphertext:
         """Divide by q_level and round; level-1, scale /= q_level."""
@@ -287,6 +421,29 @@ class CkksContext:
         return mm.mont_mul(mm.sub_mod(c[..., :lvl, :], red_ntt, q),
                            self.tables.qlast_inv_mont(lvl), q, qinv)
 
+    def drop_level(self, a: Ciphertext, levels: int) -> Ciphertext:
+        if levels <= 0:
+            return a
+        nl = a.level - levels
+        return Ciphertext(a.c0[..., : nl + 1, :], a.c1[..., : nl + 1, :],
+                          level=nl, scale=a.scale)
+
+    def set_scale(self, a: Ciphertext, target: float) -> Ciphertext:
+        """Multiply by round(target·q_level/scale), then rescale, so that
+        the scale is exactly `target`; consumes one level."""
+        q_top = self.params.q_moduli[a.level]
+        c = int(round(target * q_top / a.scale))
+        if c < 1:
+            raise ValueError(f"set_scale: scale {a.scale} at level {a.level} "
+                             f"cannot reach {target}")
+        out = self.mul_scalar_int(a, c).with_scale(a.scale * c)
+        # the float epsilon of the division is absorbed exactly
+        return self.rescale(out).with_scale(target)
+
+    # ------------------------------------------------------------------
+    # evaluator: automorphisms
+    # ------------------------------------------------------------------
+
     def apply_galois(self, a: Ciphertext, g: int) -> Ciphertext:
         """φ_g, then key switching back to s."""
         g = g % (2 * self.params.n)
@@ -300,6 +457,126 @@ class CkksContext:
         ks0, ks1 = self.keyswitch(c1p, lvl, swk)
         return Ciphertext(mm.add_mod(c0p, ks0, self._q(lvl)), ks1, level=lvl,
                           scale=a.scale)
+
+    def rotate(self, a: Ciphertext, k: int) -> Ciphertext:
+        """Left-rotate the slots by k."""
+        if k % self.params.slots == 0:
+            return a
+        return self.apply_galois(a, nttmod.rot_to_galois(k, self.params.log_n))
+
+    def conjugate(self, a: Ciphertext) -> Ciphertext:
+        return self.apply_galois(a, 2 * self.params.n - 1)
+
+    def _dec_ntt(self, c1: torch.Tensor, level: int) -> torch.Tensor:
+        """c1 [..., l+1, N] → its key-switch digits in the NTT domain,
+        [..., beta, l+1+P, N]: paid once per hoisted ciphertext.  φ_g
+        commutes with the digit split (both act coefficient by
+        coefficient), so permuting these digits equals splitting the
+        permuted c1."""
+        return self.ntt.ntt(self._decompose(c1, level),
+                            self.params.qp_idx(level))
+
+    def rotate_hoisted(self, a: Ciphertext, rots) -> dict:
+        """{k: a rotated by k} for every k of `rots`: decompose once,
+        rotate many.  Each rotation is one inner product of the shared
+        digits with a pre-permuted key (``galois_key_hoisted``), two
+        mod-downs and a permutation of the result pair.  The mod-down
+        commutes with the automorphism up to ±1 a coefficient, far below
+        the key-switch noise, so the residues differ from ``rotate``'s."""
+        p = self.params
+        lvl = a.level
+        q = self._q(lvl)
+        digits_ntt = self._dec_ntt(a.c1, lvl)
+        out = {}
+        for k in rots:
+            if k % p.slots == 0:
+                out[k] = a
+                continue
+            g = nttmod.rot_to_galois(k, p.log_n)
+            swk = self.galois_key_hoisted(g, lvl)
+            perm = self.galois_perm(g)
+            ks0, ks1 = self._ks_core(digits_ntt, swk.d0, swk.d1, lvl,
+                                     input_ntt=True)
+            out[k] = Ciphertext(
+                nttmod.apply_galois_ntt(mm.add_mod(a.c0, ks0, q), perm),
+                nttmod.apply_galois_ntt(ks1, perm), level=lvl, scale=a.scale)
+        return out
+
+    def rotate_hoisted_lazy(self, a: Ciphertext, rots) -> dict:
+        """Double-hoisted rotations (Bossuat et al. 2021): decompose once
+        and skip the mod-down, returning for each k the raw triple
+
+            (φ_k(c0) on Q_lvl,  acc0 on Q_lvl·P,  acc1 on Q_lvl·P).
+
+        A baby-step giant-step caller multiplies the triples by
+        QP-encoded plaintexts, sums them per giant step and divides by P
+        once per giant step instead of twice per rotation."""
+        p = self.params
+        lvl = a.level
+        digits_ntt = self._dec_ntt(a.c1, lvl)
+        out = {}
+        for k in rots:
+            if k % p.slots == 0:
+                out[k] = self._hoist_identity(a.c0, a.c1, lvl)
+                continue
+            g = nttmod.rot_to_galois(k, p.log_n)
+            swk = self.galois_key_hoisted(g, lvl)
+            perm = self.galois_perm(g)
+            a0, a1 = self._ks_core(digits_ntt, swk.d0, swk.d1, lvl,
+                                   input_ntt=True, lazy=True)
+            out[k] = (nttmod.apply_galois_ntt(a.c0, perm),
+                      nttmod.apply_galois_ntt(a0, perm),
+                      nttmod.apply_galois_ntt(a1, perm))
+        return out
+
+    def _hoist_identity(self, c0: torch.Tensor, c1: torch.Tensor, level: int):
+        """(c0, c1) as the lazy triple of the identity rotation: a1 holds
+        P·c1 on the Q rows and 0 on the P rows, so the mod-down gives
+        back c1 exactly; a0 = 0 (no key switch happened)."""
+        p = self.params
+        nq = level + 1
+        q, qinv = self.ntt.tabs(p.q_idx(level))[:2]
+        key = ("pmont", level)
+        pm = self._pt_cache.get(key)
+        if pm is None:
+            # Montgomery form of the scalar P on each Q limb
+            pm = torch.tensor([(p.big_p % m) * ((1 << 64) % m) % m
+                               for m in p.q_moduli[:nq]], dtype=torch.int64,
+                              device=self.device)[:, None]
+            self._pt_cache[key] = pm
+        top = mm.mont_mul(c1, pm, q, qinv)
+        lead = tuple(c1.shape[:-2])
+        a1 = torch.cat([top, top.new_zeros(lead + (p.num_p, p.n))], dim=-2)
+        return c0, top.new_zeros(lead + (nq + p.num_p, p.n)), a1
+
+    def galois_acc(self, c0, c1, g: int, lvl: int, aq0, ap0, ap1):
+        """φ_g of (c0, c1) with a lazy key switch, folded into running
+        sums: (aq0 on Q, ap0/ap1 on QP) ← (aq0 + φc0, ap0 + acc0,
+        ap1 + acc1).  G giant rotations then cost one pair of mod-downs
+        (``ks_finish``) instead of G, and round once."""
+        p = self.params
+        g = g % (2 * p.n)
+        swk = self.galois_key(g, lvl)
+        perm = self.galois_perm(g)
+        qp_q = self.ntt.tabs(p.qp_idx(lvl))[0]
+        c0p = nttmod.apply_galois_ntt(c0, perm)
+        c1p = nttmod.apply_galois_ntt(c1, perm)
+        a0, a1 = self._ks_core(self._decompose(c1p, lvl), swk.d0, swk.d1, lvl,
+                               lazy=True)
+        return (mm.add_mod(aq0, c0p, self._q(lvl)), mm.add_mod(ap0, a0, qp_q),
+                mm.add_mod(ap1, a1, qp_q))
+
+    def ks_finish(self, g0c0, g0c1, aq0, ap0, ap1, lvl: int):
+        """(g0c0, g0c1) + the lazy sums of ``galois_acc``, divided by P:
+        → the two polynomials of a ciphertext on Q_lvl."""
+        q = self._q(lvl)
+        o0 = mm.add_mod(mm.add_mod(aq0, self._mod_down(ap0, lvl), q), g0c0, q)
+        o1 = mm.add_mod(self._mod_down(ap1, lvl), g0c1, q)
+        return o0, o1
+
+    # ------------------------------------------------------------------
+    # monomial products (exact, scale-free): ct × X^k
+    # ------------------------------------------------------------------
 
     def mul_monomial(self, a: Ciphertext, k: int) -> Ciphertext:
         """Multiply by X^k (k may be negative); exact in RNS."""
@@ -332,8 +609,14 @@ class CkksContext:
             self._pt_cache[key] = mono_ntt
         return mono_ntt
 
+    def mul_by_i(self, a: Ciphertext) -> Ciphertext:
+        return self.mul_monomial(a, self.params.n // 2)
 
-def _same_level_scale(a: Ciphertext, b: Ciphertext) -> None:
+    def div_by_i(self, a: Ciphertext) -> Ciphertext:
+        return self.mul_monomial(a, 3 * self.params.n // 2)
+
+
+def _same_level_scale(a, b) -> None:
     if a.level != b.level or abs(a.scale / b.scale - 1) >= 1e-9:
         raise ValueError(f"operands differ: level {a.level}/{b.level}, "
                          f"scale {a.scale}/{b.scale}")

@@ -17,7 +17,7 @@ from __future__ import annotations
 import functools
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -35,6 +35,10 @@ class CkksParams:
     log_scale: int = 30
     h: int = 192                   # secret key Hamming weight
     sigma: float = 3.2
+    # level indices of the pipeline stages (bootstrapping layout); None
+    # for parameter sets that cannot bootstrap.  compare=False keeps the
+    # dataclass hashable.
+    boot_layout: dict | None = field(default=None, compare=False)
     q_explicit: tuple[int, ...] | None = None
     p_explicit: tuple[int, ...] | None = None
 
@@ -43,8 +47,20 @@ class CkksParams:
         return 1 << self.log_n
 
     @property
+    def slots(self) -> int:
+        return self.n // 2
+
+    @property
+    def log_slots(self) -> int:
+        return self.log_n - 1
+
+    @property
     def scale(self) -> float:
         return float(1 << self.log_scale)
+
+    @property
+    def max_level(self) -> int:
+        return len(self.logq) - 1
 
     @functools.cached_property
     def _generated(self) -> list[int]:
@@ -166,13 +182,56 @@ def boot_params(log_n: int = 16) -> CkksParams:
     """The Go fork's exact chain, DefaultBootstrapParams[6]: 28 Q-limbs
     + 5 P-limbs, logQP 1553, scale 2^30, h = 192.  All primes are
     ≡ 1 mod 2^17, so the chain instantiates at any log_n ≤ 16.
-    Level 0 holds the conv output, level 1 the conv inputs and kernels."""
+
+    Level layout, bottom to top (the fork's section order Residual ++
+    StC ++ ReLU ++ Sine ++ CtS):
+        0      2^55        conv output / bootstrap base
+        1      2^49        conv inputs and kernels
+        2-3    2^60 ×2     StoC (3 DFT groups, the top level holds 2)
+        4      2^42        post-ReLU repack masks
+        5-15   2^30 ×11    minimax ReLU (tight deg 7∘7∘13 + the product)
+        16-23  2^55 ×8     EvalMod
+        24-27  2^53 ×4     CtoS
+        P      2^61 ×5     hybrid key switching (alpha = 5, beta ≤ 6)
+    """
     q, p = ref_fork_chain(6)
     logq = tuple(round(np.log2(m)) for m in q)
     logp = tuple(round(np.log2(m)) for m in p)
+    n_stoc, n_relu, n_mod, n_ctos = 2, 11, 8, 4
+    layout = _boot_layout(n_stoc, n_relu, n_mod, n_ctos)
+    layout["stoc_groups"] = 3                    # 3 matrices on 2 levels
     return CkksParams(log_n=log_n, logq=logq, logp=logp,
-                      log_scale=30, h=192, sigma=3.2,
+                      log_scale=30, h=192, sigma=3.2, boot_layout=layout,
                       q_explicit=q, p_explicit=p)
+
+
+def _boot_layout(n_stoc: int, n_relu: int, n_mod: int, n_ctos: int) -> dict:
+    """Stage → level (or half-open level range) of a bootstrappable chain."""
+    relu = 3 + n_stoc
+    return {
+        "ecd": 1,
+        "stoc": (2, 2 + n_stoc),
+        "repack": 2 + n_stoc,
+        "relu": (relu, relu + n_relu),
+        "evalmod": (relu + n_relu, relu + n_relu + n_mod),
+        "ctos": (relu + n_relu + n_mod, relu + n_relu + n_mod + n_ctos),
+    }
+
+
+def mini_boot_params(log_n: int = 10, n_relu: int = 2, n_mod: int = 9,
+                     stoc_groups: int | None = None) -> CkksParams:
+    """Small bootstrappable set for unit tests (scale 2^25, q0 2^55), with
+    the level layout of ``boot_params``.  stoc_groups > 2 packs extra
+    StoC matrices onto the top StoC level un-rescaled, as the production
+    chain's "3 matrices on 2 levels" does."""
+    n_stoc, n_ctos = 2, 3
+    logq = (55, 35) + (35,) * n_stoc + (35,) + (25,) * n_relu \
+        + (45,) * n_mod + (45,) * n_ctos
+    layout = _boot_layout(n_stoc, n_relu, n_mod, n_ctos)
+    if stoc_groups is not None:
+        layout["stoc_groups"] = stoc_groups
+    return CkksParams(log_n=log_n, logq=logq, logp=(56, 56, 56, 56),
+                      log_scale=25, h=64, sigma=3.2, boot_layout=layout)
 
 
 def tiny_params(log_n: int = 10, levels: int = 5) -> CkksParams:

@@ -10,7 +10,9 @@ same draw order as the JAX CLI; the numpy conv is the golden output.
 The device defaults to CUDA and is never silently replaced by the CPU.
 
 ``convReLU``, ``resnet`` and the prior-art baseline (``--bl``) are not
-ported yet and exit with an error.
+ported yet and exit with an error that names what they wait for: the
+evaluator, polynomial evaluation and the minimax ReLU (``ops/relu.py``)
+are ported; the bootstrapper and the fused layer are not.
 """
 
 from __future__ import annotations
@@ -23,6 +25,13 @@ import numpy as np
 import torch
 
 BATCHS = [4, 16, 64, 256]
+# what each unported command still waits for
+MISSING = {
+    "convReLU": "the bootstrapper (ckks/bootstrap.py, ckks/dft.py) and the "
+                "fused layer (ops/pipeline.py, ops/repack.py)",
+    "resnet": "the bootstrapper, the fused layer and the ResNetRunner "
+              "(models/resnet.py)",
+}
 WIDTHS = [128, 64, 32, 16]
 
 
@@ -119,9 +128,11 @@ def main(argv=None) -> int:
         print(__doc__)
         return 1
     cmd = argv[0]
-    if cmd in ("convReLU", "resnet") or "--bl" in argv:
-        raise SystemExit(f"{cmd if '--bl' not in argv else 'the BL baseline'}"
-                         ": not ported yet")
+    if "--bl" in argv:
+        raise SystemExit("the BL baseline: not ported yet (ops/baseline.py)")
+    if cmd in MISSING:
+        raise SystemExit(f"{cmd}: not ported yet; the conv and the ReLU run, "
+                         f"{MISSING[cmd]} are missing")
     if cmd != "conv":
         raise SystemExit(f"unknown command {cmd}")
     ker, ib, n = int(argv[1]), int(argv[2]), int(argv[3])

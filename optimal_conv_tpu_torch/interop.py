@@ -39,40 +39,50 @@ def load_secret_key(ctx: CkksContext, sk_ints) -> None:
     ctx.set_secret_key(np.asarray(sk_ints, dtype=np.int64))
 
 
+KEY_TAGS = ("gal", "galh", "rlk")
+
+
 def load_switching_keys(ctx: CkksContext, keys: dict) -> int:
-    """keys: {("gal", g, level): (d0, d1)} with d0/d1 [beta, l+1+P, N]
-    NTT + Montgomery, as the JAX package's ``galois_key(g, level).d0`` and
-    ``swk_d1(...)``.  Returns the number of keys installed."""
+    """keys: {tag: (d0, d1)} with d0/d1 [beta, l+1+P, N] NTT + Montgomery,
+    as the JAX package's ``swk.d0`` and ``swk_d1(swk)``.  The tags are the
+    JAX key cache's: ``("gal", g, level)`` (``galois_key``),
+    ``("galh", g, level)`` (``galois_key_hoisted``, both halves already
+    permuted by φ_g⁻¹) and ``("rlk", level)`` (``relin_key``).  Returns
+    the number of keys installed."""
     p = ctx.params
     for key, (d0, d1) in keys.items():
-        tag, g, level = key
-        if tag != "gal":
-            raise ValueError(f"unsupported key kind {tag!r}")
+        tag, level = key[0], int(key[-1])
+        if tag not in KEY_TAGS or len(key) != (2 if tag == "rlk" else 3):
+            raise ValueError(f"unsupported key {key!r}")
         shape = (len(p.digits(level)), len(p.qp_idx(level)), p.n)
         if tuple(np.shape(d0)) != shape or tuple(np.shape(d1)) != shape:
             raise ValueError(f"key {key}: expected {shape}, got "
                              f"{np.shape(d0)} / {np.shape(d1)}")
-        ctx.switching_keys[("gal", int(g) % (2 * p.n), int(level))] = \
-            SwitchingKey(to_tensor(d0, ctx.device), to_tensor(d1, ctx.device),
-                         int(level))
+        mine = (tag, level) if tag == "rlk" else \
+            (tag, int(key[1]) % (2 * p.n), level)
+        ctx.switching_keys[mine] = SwitchingKey(
+            to_tensor(d0, ctx.device), to_tensor(d1, ctx.device), level)
     return len(keys)
 
 
 def load_keys(path: str, ctx: CkksContext) -> int:
-    """Read a JAX ``save_keys`` archive: its secret key and its Galois keys.
-    Seed-compressed keys (no stored d1) cannot be read: their d1 comes
-    from JAX's threefry generator."""
+    """Read a JAX ``save_keys`` archive: its secret key and its
+    relinearisation, Galois and pre-permuted hoisting keys (the archive
+    marks the last in column 4 of its index; their stored halves are the
+    permuted ones, so they load like the others).  Seed-compressed keys
+    (no stored d1) cannot be read: their d1 comes from JAX's threefry
+    generator."""
     z = np.load(path, allow_pickle=True)
     load_secret_key(ctx, z["sk"])
     keys = {}
     for i, row in enumerate(z["index"]):
         key = ast.literal_eval(row[0])
-        if key[0] != "gal":
-            continue
         if row[3] != "True":
             raise ValueError(f"key {key} is seed-compressed (no d1 stored)")
-        if len(row) > 4 and row[4] == "True":
-            continue                      # pre-permuted hoisting keys
+        permuted = len(row) > 4 and row[4] == "True"
+        if permuted != (key[0] == "galh"):
+            raise ValueError(f"key {key}: permuted flag {permuted} does not "
+                             "match its tag")
         keys[key] = (z[f"d0_{i}"], z[f"d1_{i}"])
     return load_switching_keys(ctx, keys)
 

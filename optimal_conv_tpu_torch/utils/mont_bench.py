@@ -4,8 +4,9 @@
 
 Needs one CUDA device.  Prints the card's name and power limit, the
 whole-kernel SASS counts of ``csrc/mont_mul.cu``, then for each timed
-shape the kernel's time beside the time its bytes need at 3.35 TB/s
-(each distinct input byte read once, each output byte written once),
+shape (the conv's at 16²×256 and a level-15 ct × ct product's) the
+kernel's time beside the time its bytes need at 3.35 TB/s (each distinct
+input byte read once, each output byte written once),
 and the wrapper's host microseconds per call at [2, N].
 ``chip_smoke.py`` times the same cases.  With ``--ab`` it also times them,
 and [1, N], under block sizes of 256, 128 and 64 threads, each four times
@@ -70,6 +71,30 @@ def timed_cases(p, rng, dev) -> list[dict]:
              c=None, cold=False),
         dict(shape="[2,65536] x [2,1]", args=(pt, r2_2, q2, qi2), c=None,
              cold=True),
+    ]
+
+
+def evaluator_cases(p, rng, dev) -> list[dict]:
+    """K1's shapes in a ct × ct product at level 15 of the fork's chain,
+    where the ReLU starts: the chained product of two standard-form
+    [16,N] operands with r2 (``modmath.mul_mod``) and the key inner
+    product of the four key-switch digits on the 21 limbs of Q_15·P,
+    nothing broadcast.  The first is 25 MB and shorter than the host's
+    time to enqueue it, so it is timed call by call with the L2 flushed."""
+    n = p.n
+    qs = p.q_moduli[:16]
+    q16, qi16, r2_16, _ = mm.limb_tables(qs, dev)
+    qp = [p.moduli[i] for i in p.qp_idx(15)]
+    q21, qi21, _, _ = mm.limb_tables(qp, dev)
+    a = residues(qs, (), n, rng, dev)
+    b = residues(qs, (), n, rng, dev)
+    dig = residues(qp, (4,), n, rng, dev)
+    key = residues(qp, (4,), n, rng, dev)
+    return [
+        dict(shape="[16,65536] x [16,65536] x [16,1] chained",
+             args=(a, b, q16, qi16), c=r2_16, cold=True),
+        dict(shape="[4,21,65536] x [4,21,65536]", args=(dig, key, q21, qi21),
+             c=None, cold=False),
     ]
 
 
@@ -160,7 +185,7 @@ def main(argv=None) -> int:
         print(f"mont_mul_kernel {key}: {k}")
     p = boot_params(16)
     rng = np.random.default_rng(2024)
-    for case in timed_cases(p, rng, dev):
+    for case in timed_cases(p, rng, dev) + evaluator_cases(p, rng, dev):
         t = time_case(case, dev)
         print(f"K1 {case['shape']}: {t['ms']:.4f} ms"
               f"{' (cold L2; warm %.4f)' % t['warm_l2_ms'] if case['cold'] else ''}"

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from optimal_conv_tpu_torch.ckks.context import CkksContext, SwitchingKey
 from optimal_conv_tpu_torch.ckks.params import boot_params
 from optimal_conv_tpu_torch.core import modmath as mm
 from optimal_conv_tpu_torch.core import mont_kernel, ntt_kernel
@@ -200,3 +201,64 @@ def test_kernels_reject_bad_input(dev):
     ctx = NttContext(mods, 10, dev)
     with pytest.raises(ValueError):
         ctx.ntt(torch.zeros(2, 512, dtype=torch.int64, device=dev))
+
+
+@pytest.fixture(scope="module")
+def contexts(dev):
+    """The fork's chain at logN 12 on the CPU and on the card, with the
+    same secret key and two ciphertexts encrypted once, on the CPU."""
+    p = boot_params(12)
+    cpu = CkksContext(p, "cpu", seed=4)
+    card = CkksContext(p, dev, seed=4)
+    rng = np.random.default_rng(4)
+    cts = [cpu.encrypt(cpu.encoder.encode_slots(rng.uniform(-1, 1, p.slots),
+                                                p.scale, 15)) for _ in range(2)]
+    return cpu, card, cts
+
+
+def _to_card(ct, dev):
+    return type(ct)(ct.c0.to(dev), ct.c1.to(dev), level=ct.level, scale=ct.scale)
+
+
+def _share_keys(cpu, card):
+    """Switching keys are drawn by a generator of the context's device, so
+    the card takes copies of the CPU context's."""
+    for key, swk in cpu.switching_keys.items():
+        card.switching_keys[key] = SwitchingKey(
+            swk.d0.to(card.device), swk.d1.to(card.device), swk.level)
+
+
+def _same_ct(got, want):
+    assert (got.level, got.scale) == (want.level, want.scale)
+    assert torch.equal(got.c0.cpu(), want.c0) and torch.equal(got.c1.cpu(), want.c1)
+
+
+def test_mul_ct_on_card_equals_cpu(dev, contexts):
+    """ct x ct with relinearisation at level 15 (four digits, the last of
+    one limb), then the rescale: the card's residues equal the CPU's."""
+    cpu, card, (a, b) = contexts
+    want = cpu.rescale(cpu.mul_ct(a, b))
+    _share_keys(cpu, card)
+    stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV)
+    before = [(s.launches, s.plain_calls) for s in stats]
+    got = card.rescale(card.mul_ct(_to_card(a, dev), _to_card(b, dev)))
+    for s, (launches, plain) in zip(stats, before):
+        assert s.launches > launches and s.plain_calls == plain
+    _same_ct(got, want)
+
+
+@pytest.mark.parametrize("level", [15, 2])
+def test_rotate_hoisted_on_card_equals_cpu(dev, contexts, level):
+    cpu, card, (a, _) = contexts
+    a = cpu.drop_level(a, 15 - level)
+    rots = [0, 1, 2, 4, -3]
+    want = cpu.rotate_hoisted(a, rots)
+    _share_keys(cpu, card)
+    got = card.rotate_hoisted(_to_card(a, dev), rots)
+    for k in rots:
+        _same_ct(got[k], want[k])
+    lazy_want = cpu.rotate_hoisted_lazy(a, rots[:2])
+    lazy_got = card.rotate_hoisted_lazy(_to_card(a, dev), rots[:2])
+    for k in rots[:2]:
+        for g, w in zip(lazy_got[k], lazy_want[k]):
+            assert torch.equal(g.cpu(), w)

@@ -309,3 +309,48 @@ def test_mont_mul2_on_cpu_is_two_plain_products():
     assert mk.STATS.plain_calls == before[1] + 2
     assert torch.equal(got, mm.mont_mul(mm.mont_mul(a, b, q, qinv), r2, q, qinv))
     assert torch.equal(mm.mul_mod(a, b, q, qinv, r2), got)
+
+
+def _evaluator_cases(n=N):
+    """The call patterns the evaluator adds: name → (a, b, q, qinv, c)."""
+    q, qinv, r2, _ = _tables()
+    a = _residues((6, n), 11)
+    b = _residues((6, n), 12)
+    dig = _residues((3, 6, n), 13)                             # [beta, R, n]
+    key = _residues((3, 6, n), 14)
+    x = _residues((3, 2, n), 15)                               # [beta, alpha, n]
+    col = torch.stack([r2[:2, 0], r2[2:4, 0], r2[4:6, 0]])[..., None]
+    sq = torch.stack([q[:2, 0], q[2:4, 0], q[4:6, 0]])[..., None]
+    sqi = torch.stack([qinv[:2, 0], qinv[2:4, 0], qinv[4:6, 0]])[..., None]
+    return {
+        # mul_ct: two standard-form operands, r2 chained (modmath.mul_mod)
+        "mul_ct_chain": (a, b, q, qinv, r2),
+        # the same after drop_level: row slices of taller tensors
+        "mul_ct_chain_dropped": (a[:4], b[:4], q[:4], qinv[:4], r2[:4]),
+        # _ks_core: every digit against its own key rows, nothing broadcast
+        "key_inner": (dig, key, q, qinv, None),
+        # extend_digits: per-digit, per-limb constants [beta, alpha, 1]
+        "digit_scale": (x, col, sq, sqi, None),
+        # mul_scalar_int / _hoist_identity: a [L, 1] constant column
+        "const_col": (a, r2, q, qinv, None),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_evaluator_cases()))
+def test_evaluator_call_patterns(name):
+    """The kernel model at the shapes mul_ct, the key inner product and
+    the ragged digit split hand to K1: every element once, equal to the
+    plain version, on the 16-byte path, with no materialised operand."""
+    a, b, q, qinv, c = _evaluator_cases()[name]
+    pl = _plan(a, b, q, qinv, c)
+    assert pl.vec and not pl.collapse and pl.chained == (c is not None)
+    got, visits = _model_kernel(pl, a, b, q, qinv, c)
+    assert (visits == 1).all()
+    want = (mm.mont_mul_plain(a, b, q, qinv) if c is None else
+            mm.mont_mul2_plain(a, b, c, q, qinv))
+    assert torch.equal(got.reshape(pl.shape), want)
+    if name == "key_inner":
+        n = N
+        assert pl.dims == ((3, (6 * n, 6 * n, 0, 0, 0)), (6, (n, n, 1, 1, 0)))
+    if name == "mul_ct_chain":
+        assert pl.dims == ((6, (N, N, 1, 1, 1)),)

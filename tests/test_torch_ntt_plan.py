@@ -258,3 +258,35 @@ def test_row_strides_of_views(view, want):
         for r in range(flat.shape[0]):      # base holds its own offsets
             off = a.storage_offset() + (r // l) * got[0] + (r % l) * got[1]
             assert torch.equal(flat[r], torch.arange(off, off + n))
+
+
+# rows of one transform on the ReLU path of the 28+5-limb chain: the top
+# limb of a rescale, the P rows of a mod-down, and the key-switch digits
+# beta·(l+6) of levels 5 (2 digits), 10 (3) and 15 (4)
+@pytest.mark.parametrize("rows", [1, 5, 15, 22, 48, 84])
+def test_plan_at_evaluator_row_counts(rows):
+    for inverse in (False, True):
+        passes = ntt_kernel.plan(16, rows, inverse)
+        assert len(passes) == 2
+        cols, chunks = passes[::-1] if inverse else passes
+        assert (cols["k"], cols["log_stride"]) == (8, 8)
+        assert (chunks["k"], chunks["log_stride"]) == (8, 0)
+        for ps in passes:
+            assert ps["grid"] == rows * 64 and ps["threads"] == 128
+            assert ps["smem"] == 8192
+        ints = ntt_kernel._plan_ints(16, rows, inverse)
+        assert ints[0] == 2 and len(ints) == 13
+
+
+def test_row_strides_of_evaluator_views():
+    """The views the evaluator transforms in place: the top limb of a
+    level-15 polynomial, the P rows of a [21, N] accumulator and of a
+    batch of them, and a level dropped by slicing."""
+    n = 16
+    acc = torch.zeros(21, n, dtype=torch.int64)
+    assert ntt_kernel._row_strides(acc[16:]) == (0, n)
+    assert ntt_kernel._row_strides(acc[15:16]) == (0, n)
+    assert ntt_kernel._row_strides(acc[:11]) == (0, n)
+    batch = torch.zeros(3, 21, n, dtype=torch.int64)
+    assert ntt_kernel._row_strides(batch[:, 16:]) == (21 * n, n)
+    assert ntt_kernel._row_strides(batch[:, :6]) == (21 * n, n)

@@ -18,6 +18,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["optimal_conv_tpu_torch", "optimal_conv_tpu_torch.cli",
            "optimal_conv_tpu_torch.interop", "optimal_conv_tpu_torch.device",
            "optimal_conv_tpu_torch.ops.conv",
+           "optimal_conv_tpu_torch.ops.relu",
+           "optimal_conv_tpu_torch.ckks.polyeval",
            "optimal_conv_tpu_torch.models.resnet",
            "optimal_conv_tpu_torch.utils.timing",
            "optimal_conv_tpu_torch.core.rns"]

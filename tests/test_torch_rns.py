@@ -56,7 +56,9 @@ def _digit_case(chain, level, seed):
     return jp, got, want
 
 
-@pytest.mark.parametrize("level", [27, 0])
+# level 27: digits (5,5,5,5,5,3); 15: (5,5,5,1) and 5: (5,1), the ragged
+# splits the ReLU's relinearisations start and end with; 0: one limb
+@pytest.mark.parametrize("level", [27, 0, 15, 5])
 def test_extend_digits_bit_exact(chain, level):
     jp, got, want = _digit_case(chain, level, level)
     assert got.shape == want.shape == (len(jp.digits(level)),
