@@ -22,9 +22,23 @@ the port's main path at logN=16 on the Go fork's modulus chain:
   * the encrypted activation: ``ops.relu.eval_relu`` from level 15 down
     the chain's eleven 30-bit ReLU levels to the repack level 4, scale
     within a bit of 2^30, against ``relu_np`` to 2e-2 everywhere and
-    5e-3 where |x| > 0.05.
+    5e-3 where |x| > 0.05;
+  * the split bootstrapper (``boot_path``): 2^16 seeded coefficients in
+    [-1, 1] encrypted at level 0, ``SplitBootstrapper.ctos`` at
+    log_sparse 0 (two ciphertexts at level 15, against the bit-reversed
+    coefficients to 2e-2) and ``stoc`` back to level 1 (3e-2), then the
+    same at log_sparse 2 (one ciphertext, stride-4 coefficients);
+  * the fused layer (``layer_path``): ``convReLU 3 0 1`` through the CLI's
+    functions against the Go binary's decrypted outputs (mean agreement
+    on its ten values > 12 bits, mean precision against numpy conv +
+    exact ReLU > 7.0 bits), and one ResNet-20 CIFAR-10 block-1 layer at
+    the model's width (``Conv_sparse``, 32², 16 → 16 channels, norm 4,
+    log_sparse 2, pow 6, seeded weights) against numpy conv + BN + ReLU,
+    relative to 2^pow: 2e-2 everywhere, 5e-3 where |pre-activation| / 2^pow
+    > 0.05; its output ciphertext then goes through the same layer again,
+    held to the same bars against the numpy layer applied twice.
 
-Every kernel's launch counter is zeroed just before each of these three
+Every kernel's launch counter is zeroed just before each of these
 paths and must be nonzero after it, with no plain-version call.  Beside each
 kernel's time stands its bound: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its 32-bit integer
@@ -36,10 +50,14 @@ broadcast and sliced rows, the chained product) and timed at five
 shapes of the conv and two of a level-15 ct × ct product
 (``utils.mont_bench.timed_cases`` / ``evaluator_cases``), with its
 wrapper's host time per call; K2/K3 at the conv's shapes and at the 84,
-22, 5 and 1 rows of the ReLU's key switches and rescales.  After the
+22, 5 and 1 rows of the ReLU's key switches and rescales; all three at
+the bootstrap's shapes (the digits and inner products of levels 27, 23, 3
+and 2).  After the
 paths one warm conv at 16²×256 is split into host-side kernel encoding
-and the device-side ``conv_then_pack``, and one warm ``eval_relu`` is
-timed; ``torch.profiler`` lists the device kernels of both.  Any failed check raises and the script exits
+and the device-side ``conv_then_pack``, one warm ``eval_relu`` is
+timed, and both fused layers are timed warm stage by stage, with the
+single- against the double-hoisted form of the four CtoS transforms;
+``torch.profiler`` lists the device kernels of each.  Any failed check raises and the script exits
 nonzero.  The last lines are a JSON object of per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it fails at once.
@@ -57,6 +75,7 @@ import numpy as np
 import torch
 
 from optimal_conv_tpu_torch import cli
+from optimal_conv_tpu_torch.ckks import bootstrap as boot
 from optimal_conv_tpu_torch.ckks.context import CkksContext
 from optimal_conv_tpu_torch.ckks.params import boot_params
 from optimal_conv_tpu_torch.core import cuda_lib, mont_kernel, ntt_kernel
@@ -65,6 +84,8 @@ from optimal_conv_tpu_torch.core.ntt import NttContext, _ntt_fwd, _ntt_inv
 from optimal_conv_tpu_torch.models.resnet import (ResNetConfig,
                                                   encrypt_fc_input, fc_conv)
 from optimal_conv_tpu_torch.ops import conv as convops
+from optimal_conv_tpu_torch.ops import repack as rp
+from optimal_conv_tpu_torch.ops.pipeline import LayerMaps, eval_conv_bn_relu
 from optimal_conv_tpu_torch.ops.relu import eval_relu, relu_np
 from optimal_conv_tpu_torch.utils import kernel_info, mont_bench
 from optimal_conv_tpu_torch.utils.timing import cuda_ms, cuda_ms_cold
@@ -206,7 +227,8 @@ def check_mont(dev, p, rng, card):
     _mont_equal("mont_mul2 [1,2,N] x [4,2,N] x [2,1]", (ct, pls[:4], q01, qi01),
                 cases[1]["c"], True, err)
     rows = []
-    for case in cases + mont_bench.evaluator_cases(p, rng, dev):
+    for case in (cases + mont_bench.evaluator_cases(p, rng, dev)
+                 + mont_bench.bootstrap_cases(p, rng, dev)):
         _mont_equal(case["shape"], case["args"], case["c"], True, err)
         pl = mont_kernel.plan(*mont_kernel.describe(*case["args"], case["c"]))
         t = mont_bench.time_case(case, dev)
@@ -221,7 +243,9 @@ def check_mont(dev, p, rng, card):
         rows.append(dict(shape=case["shape"], plain_ms=plain_ms, library_ms=None,
                          tile=[pl.threads, mont_kernel.PER_THREAD],
                          whole_kernel_int32_ms=whole_ms, **t, **bnd))
-        print(f"K1 mont_mul {case['shape']}: {t['ms']:.4f} ms"
+        print(f"K1 mont_mul {case['shape']}"
+              f"{' (' + case['what'] + ')' if 'what' in case else ''}: "
+              f"{t['ms']:.4f} ms"
               f"{' (cold L2; warm %.4f)' % t['warm_l2_ms'] if case['cold'] else ''}"
               f", plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
               f"{bnd['bound_by']} (bytes {bnd['bytes_ms']:.4f}, int32 "
@@ -302,6 +326,17 @@ def check_ntt(dev, p, rng, card):
         qpl = p.qp_idx(level)
         dig = residues([p.moduli[i] for i in qpl], (beta,), n, rng, dev)
         _both_ways(ctx, dig, qpl, f"{beta} digits of level {level}", err)
+    # the bootstrap's rows: the six digits of level 27 (198 rows), the
+    # five of level 23 (the top of EvalMod), the one digit of the StoC
+    # levels 3 and 2, and the 28 limbs of Q_27 (mod_raise; the iNTT of c1)
+    for level in (27, 23, 3, 2):
+        qpl = p.qp_idx(level)
+        beta = len(p.digits(level))
+        dig = residues([p.moduli[i] for i in qpl], (beta,), n, rng, dev)
+        _both_ways(ctx, dig, qpl, f"{beta} digits of level {level}", err)
+    q27 = p.q_idx(27)
+    _both_ways(ctx, residues([p.moduli[i] for i in q27], (), n, rng, dev), q27,
+               "the 28 limbs of level 27", err)
     qp15 = p.qp_idx(15)
     acc15 = residues([p.moduli[i] for i in qp15], (), n, rng, dev)
     check(ntt_kernel._row_strides(acc15[16:]) == (0, n)
@@ -339,7 +374,12 @@ def check_ntt(dev, p, rng, card):
               ("[4,21,65536]", qp15, (4,), False),
               ("[2,11,65536]", p.qp_idx(5), (2,), False),
               ("[5,65536]", p.p_idx(), (), True),
-              ("[1,65536]", (15,), (), True)]
+              ("[1,65536]", (15,), (), True),
+              ("[6,33,65536]", p.qp_idx(27), (6,), False),
+              ("[5,29,65536]", p.qp_idx(23), (5,), False),
+              ("[28,65536]", q27, (), True),
+              ("[1,9,65536]", p.qp_idx(3), (1,), True),
+              ("[1,8,65536]", p.qp_idx(2), (1,), True)]
     out = {"ntt_fwd": {}, "ntt_inv": {}}
     for shape, idx, lead, cold in shapes:
         x = residues([p.moduli[i] for i in idx], lead, n, rng, dev)
@@ -667,6 +707,325 @@ def relu_times(ctx, dev, card):
           f"{len(rlk)} keys")
 
 
+def _bit_reverse(bits: int) -> np.ndarray:
+    return np.array([rp.reverse_bits(i, bits) for i in range(1 << bits)])
+
+
+def key_bytes(ctx) -> dict:
+    """Device bytes of the context's switching keys by kind: plain Galois
+    keys (giants, conjugation, SubSum, repack rotations), pre-permuted
+    hoisting keys (babies) and relinearisation keys."""
+    out = {"gal": 0, "galh": 0, "rlk": 0}
+    for tag, k in ctx.switching_keys.items():
+        out[tag[0]] += (k.d0.numel() + k.d1.numel()) * 8
+    return out
+
+
+def _gib(n_bytes) -> str:
+    return f"{n_bytes / 2**30:.3f} GiB"
+
+
+def describe_btp(btp, what: str) -> None:
+    for name, lts in (("ctos", btp.ctos_lt), ("stoc", btp.stoc_lt)):
+        for i, lt in enumerate(lts):
+            n_diag = sum(len(sel) for _, sel, _, _ in lt.stacked)
+            print(f"{what} {name}.lt{i}: level {lt.level}, {n_diag} diagonals, "
+                  f"baby step {lt.bs}, {len(lt.babies)} babies "
+                  f"({sum(1 for r in lt.babies if r)} key-switched), "
+                  f"{len(lt.stacked)} giants ({len(lt.giants())} key-switched), "
+                  f"{'double' if lt.dh else 'single'}-hoisted, "
+                  f"rescale {lt.rescale}, plaintexts {_gib(lt.plaintext_bytes())}")
+    print(f"{what}: levels {btp.ctos_lt[0].level} -> {btp.post_ctos_level} "
+          f"(CtoS{' + fold' if btp.ls else ''}) -> EvalMod -> "
+          f"{btp.stoc_lt[0].level} -> {btp.post_stoc_level} (StoC); plaintexts "
+          f"{_gib(btp.plaintext_bytes())}")
+
+
+def _err_line(what, err, bar) -> None:
+    print(f"{what}: max err {err.max():.3e} on slot/coefficient "
+          f"{int(err.argmax())} (bar {bar:g}), 99.9th percentile "
+          f"{np.percentile(err, 99.9):.3e}, index 0 {err[0]:.3e}, median "
+          f"{np.median(err):.3e}")
+    check(np.isfinite(err).all() and err.max() < bar,
+          f"{what}: max err {err.max()} >= {bar}")
+
+
+def boot_path(ctx, dev, fam, ls: int) -> None:
+    """Phase 8: one bootstrap by its two halves at log_sparse `ls`.
+    Seeded coefficients in [-1, 1] (at stride 2^ls) at scale delta0 and
+    level 0; ctos against the bit-reversed coefficients, stoc against
+    the coefficients."""
+    p = ctx.params
+    btp = fam[ls]
+    torch.cuda.synchronize(dev)
+    print(f"bootstrapper log_sparse {ls}: built in {fam.build_seconds[ls]:.2f} s "
+          f"(host: slot encoding of every diagonal)")
+    describe_btp(btp, f"bootstrapper log_sparse {ls}")
+    v = np.zeros(p.n)
+    v[:: 1 << ls] = np.random.default_rng(7 + ls).uniform(-1, 1, p.n >> ls)
+    ct = ctx.encrypt(ctx.encoder.encode_coeffs(v, btp.delta0, 0))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    up, low = btp.ctos(ct)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    top = p.boot_layout["relu"][1] - 1
+    check(up.level == top == 15, f"ctos landed at level {up.level}, not 15")
+    check(abs(np.log2(up.scale) - p.log_scale) < 1.01,
+          f"ctos: scale 2^{np.log2(up.scale)} is not within a bit of 2^30")
+    n_sub = p.slots >> ls
+    br = _bit_reverse(p.log_slots - ls)
+    cp = v[:: 1 << ls]
+    what = f"boot_path log_sparse {ls}"
+    if ls == 0:
+        check(low is not None and low.level == top, "ctos: no second ciphertext")
+        _err_line(f"{what} ctos up", np.abs(
+            ctx.decrypt_decode_slots(up).real - cp[br]), 2e-2)
+        _err_line(f"{what} ctos low", np.abs(
+            ctx.decrypt_decode_slots(low).real - cp[br + n_sub]), 2e-2)
+    else:
+        check(low is None, "sparse ctos returned a second ciphertext")
+        want = np.tile(np.concatenate([cp[br], cp[br + n_sub]]),
+                       p.slots // (2 * n_sub))
+        _err_line(f"{what} ctos", np.abs(
+            ctx.decrypt_decode_slots(up).real - want), 2e-2)
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    out = btp.stoc(up, low)
+    torch.cuda.synchronize(dev)
+    t3 = time.perf_counter()
+    check(out.level == 1, f"stoc landed at level {out.level}, not 1")
+    _err_line(f"{what} stoc", np.abs(ctx.decrypt_decode_coeffs(out) - v), 3e-2)
+    print(f"{what}: first ctos {1e3 * (t1 - t0):.1f} ms, first stoc "
+          f"{1e3 * (t3 - t2):.1f} ms (keys made); log2(scale) after ctos "
+          f"{np.log2(up.scale):.6f}, after stoc {np.log2(out.scale):.6f}")
+
+
+# One ResNet-20 CIFAR-10 block-1 layer at logN 16: 32 x 32 padded grid, 31
+# raw, 3 x 3 kernel, 16 -> 16 channels at stride 4 of the 64 channel slots
+RESNET_LAYER = dict(in_wid=32, raw=31, ker_wid=3, ch=16, norm=4, ls=2, pow_=6.0)
+
+
+def resnet_layer_inputs(seed: int = 11):
+    """A seeded image in [-1, 1] and He-style weights: normal(0, 0.5 /
+    sqrt(9 * 16)) kernels, bn_a in [0.8, 1.2], bn_b in [-0.1, 0.1]."""
+    g = RESNET_LAYER
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(-1, 1, (g["raw"], g["raw"], g["ch"]))
+    ker = rng.normal(0, 0.5 / np.sqrt(g["ker_wid"] ** 2 * g["ch"]),
+                     (g["ker_wid"], g["ker_wid"], g["ch"], g["ch"]))
+    return img, ker, rng.uniform(0.8, 1.2, g["ch"]), rng.uniform(-0.1, 0.1, g["ch"])
+
+
+def resnet_layer(ctx, fam, maps, ct, ker, bn_a, bn_b, on_stage=None):
+    g = RESNET_LAYER
+    return eval_conv_bn_relu(ctx, fam, ct, ker.ravel(), bn_a, bn_b, 0.0,
+                             g["pow_"], g["in_wid"], g["raw"], g["ker_wid"],
+                             g["ch"], g["ch"], g["norm"], 0, 1, 2, g["ls"],
+                             "Conv_sparse", maps, on_stage=on_stage)
+
+
+def _layer_check(ctx, out, pre, what) -> None:
+    """The layer's decrypted output against relu(pre), relative to 2^pow."""
+    g = RESNET_LAYER
+    p = ctx.params
+    unit = 2.0 ** g["pow_"]
+    check(out.level == 1, f"{what}: landed at level {out.level}, not 1")
+    got = convops.post_process(ctx.decrypt_decode_coeffs(out), g["raw"],
+                               g["in_wid"])
+    mb = p.n // g["in_wid"] ** 2
+    got = got.reshape(g["raw"], g["raw"], mb)[:, :, ::g["norm"]][:, :, :g["ch"]]
+    check(np.isfinite(got).all(), f"{what}: bad output")
+    err = np.abs(got - relu_np(pre))
+    far = np.abs(pre) / unit > 0.05
+    print(f"{what}: pre-activations in [{pre.min():.3f}, {pre.max():.3f}] "
+          f"(/2^pow: [{pre.min() / unit:.4f}, {pre.max() / unit:.4f}]); error "
+          f"max {err.max():.3e} = {err.max() / unit:.3e} of 2^pow (bar 2e-2), "
+          f"99th percentile {np.percentile(err, 99):.3e} = "
+          f"{np.percentile(err, 99) / unit:.3e} of 2^pow; where |pre|/2^pow > "
+          f"0.05 ({int(far.sum())} values) max "
+          f"{(err[far].max() / unit if far.any() else 0.0):.3e} of 2^pow (bar "
+          f"5e-3); share under 2.5e-2 absolute {np.mean(err < 2.5e-2):.4f}; "
+          f"log2(scale) {np.log2(out.scale):.6f}")
+    check(err.max() / unit < 2e-2, f"{what}: max err {err.max() / unit} of 2^pow")
+    check(not far.any() or err[far].max() / unit < 5e-3,
+          f"{what}: err {err[far].max() / unit if far.any() else 0} of 2^pow "
+          f"where |pre|/2^pow > 0.05")
+
+
+def layer_path(ctx, dev, fam):
+    """Phase 9: the fused layer.  (a) convReLU 3 0 1 against the Go
+    binary's decrypted outputs; (b) one ResNet-20 block-1 layer, twice."""
+    p = ctx.params
+    with open(GOLDEN) as f:
+        golden = np.array(json.load(f)["convReLU"]["ours"]["values_test"])
+    raw, ker, bn_a, bn_b, want = cli.conv_inputs(3, 0, 0,
+                                                 np.random.default_rng(0),
+                                                 relu=True)
+    cr_maps = cli.conv_relu_maps(p, 3, 0)
+    got, enc_s, layer_s = cli.encrypted_conv_relu(ctx, fam, cr_maps, 3, 0, raw,
+                                                  ker, bn_a, bn_b)
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          "convReLU 3 0 1: bad output")
+    agree = -np.log2(np.abs(got[:10] - golden) + 1e-300)
+    prec = -np.log2(np.abs(got - want) + 1e-300)
+    print(f"convReLU 3 0 1: first call {layer_s * 1e3:.1f} ms; agreement with "
+          f"the Go binary's ten values mean {agree.mean():.2f} min "
+          f"{agree.min():.2f} bits (bar mean > 12); precision against numpy "
+          f"conv + exact ReLU mean {prec.mean():.2f} min {prec.min():.2f} bits "
+          f"(bar mean > 7.0; the Go binary's own 7.73 / 6.1); max err "
+          f"{np.abs(got - want).max():.3e}")
+    print(cli.precision_stats(want, got))
+    check(agree.mean() > 12.0, f"convReLU 3 0 1 vs golden: {agree.mean()} bits")
+    check(prec.mean() > 7.0, f"convReLU 3 0 1 precision: {prec.mean()} bits")
+
+    g = RESNET_LAYER
+    img, rker, ra, rb = resnet_layer_inputs()
+    maps = LayerMaps(ext_idx=[rp.gen_keep_vec_sparse(p.n // 2, g["in_wid"],
+                                                     g["raw"], g["ls"]), None])
+    ct = ctx.encrypt(ctx.encoder.encode_coeffs(
+        convops.prep_input(img.ravel(), g["raw"], g["in_wid"], p.n, g["norm"]),
+        p.scale, convops.ECD_LEVEL))
+    out1 = resnet_layer(ctx, fam, maps, ct, rker, ra, rb)
+    pre1 = convops.conv2d_same_np(img, rker) * ra + rb
+    _layer_check(ctx, out1, pre1, "ResNet-20 Conv_sparse layer")
+    out2 = resnet_layer(ctx, fam, maps, out1, rker, ra, rb)
+    pre2 = convops.conv2d_same_np(relu_np(pre1), rker) * ra + rb
+    _layer_check(ctx, out2, pre2, "the same layer on its own output")
+    return dict(cr=(cr_maps, raw, ker, bn_a, bn_b), rn=(maps, ct, rker, ra, rb))
+
+
+class StageClock:
+    """on_stage callback: host-clock ms of each stage, each ending in a
+    synchronise."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.ms: dict = {}
+        torch.cuda.synchronize(dev)
+        self.t = time.perf_counter()
+
+    def __call__(self, name, value) -> None:
+        torch.cuda.synchronize(self.dev)
+        now = time.perf_counter()
+        self.ms[name] = self.ms.get(name, 0.0) + (now - self.t) * 1e3
+        self.t = now
+
+
+def _time_layer(what, fn, dev, card) -> None:
+    """fn(on_stage) warm: wall ms of three calls, one call split by stage,
+    the launches of one call and its device kernels by group."""
+    walls = [_wall_ms(lambda: fn(None), dev, iters=1) for _ in range(3)]
+    clock = StageClock(dev)
+    fn(clock)
+    for s in STATS:
+        s.reset()
+    fn(None)
+    _read_counts(f"one warm {what}", dev)
+    wall, busy, groups = _profile_groups(lambda: fn(None), dev)
+    print(f"{what} warm, {card}: wall ms {[round(t, 1) for t in walls]}; by "
+          f"stage, a synchronise after each (sum "
+          f"{sum(clock.ms.values()):.1f}): "
+          + json.dumps({k: round(v, 2) for k, v in clock.ms.items()}))
+    print(f"{what} under the profiler: wall {wall:.2f} ms, device kernels "
+          f"{busy:.3f} ms (busy {100 * busy / wall:.1f}%): {json.dumps(groups)}")
+
+
+def hoisting_ab(ctx, dev, card, fam) -> None:
+    """The four CtoS transforms of log_sparse 0 in both forms, each on a
+    ciphertext of its level: warm wall ms, device kernel ms, launches and
+    plaintext bytes.  The keys are the same in both forms (pre-permuted
+    keys for the babies, plain Galois keys for the giants)."""
+    p = ctx.params
+    default = fam[0]
+    t0 = time.perf_counter()
+    other = boot.SplitBootstrapper(ctx, log_sparse=0,
+                                   double_hoist=not default.ctos_lt[0].dh)
+    print(f"hoisting A/B: the other form's bootstrapper built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    x = np.random.default_rng(9).uniform(-1, 1, p.slots)
+    total = {}
+    for i, (a, b) in enumerate(zip(default.ctos_lt, other.ctos_lt)):
+        ct = ctx.encrypt(ctx.encoder.encode_slots(x, p.scale, a.level))
+        for lt in (a, b, b, a):
+            form = "double" if lt.dh else "single"
+            ms = _wall_ms(lambda: lt(ct), dev, iters=3)
+            counts = _counts_of(lambda: lt(ct), dev)
+            wall, busy, groups = _profile_groups(lambda: lt(ct), dev)
+            total.setdefault(form, []).append((ms, busy))
+            print(f"ctos.lt{i} level {lt.level} {form}-hoisted, {card}: "
+                  f"{ms:.2f} ms warm wall, device kernels {busy:.3f} ms "
+                  f"(busy {100 * busy / wall:.1f}% under the profiler), "
+                  f"launches {json.dumps(counts)}, PyTorch kernels "
+                  f"{groups.get('torch kernels', {}).get('launches', 0)}, "
+                  f"plaintexts {_gib(lt.plaintext_bytes())}")
+    for form, rows in total.items():
+        print(f"hoisting A/B, four CtoS transforms {form}-hoisted (two "
+              f"readings each, order a b b a): wall "
+              f"{sum(r[0] for r in rows) / 2:.2f} ms, device "
+              f"{sum(r[1] for r in rows) / 2:.3f} ms")
+    # K10, one giant's inner sum with all its babies, as launches
+    lt = default.ctos_lt[1]
+    ct = ctx.encrypt(ctx.encoder.encode_slots(x, p.scale, lt.level))
+    for t in (lt, other.ctos_lt[1]):
+        if t.dh:
+            lazy = ctx.rotate_hoisted_lazy(ct, t.babies)
+            stacks = tuple(torch.stack([lazy[r][k] for r in t.babies])
+                           for k in range(3))
+            inner = boot._inner_dh
+        else:
+            rots = ctx.rotate_hoisted(ct, t.babies)
+            stacks = (torch.stack([rots[r].c0 for r in t.babies]),
+                      torch.stack([rots[r].c1 for r in t.babies]))
+            inner = boot._inner
+        _, _, pts, sel = t.stacked[0]
+
+        def one():
+            return inner(ctx, t.level, stacks, sel, pts)
+
+        counts = _counts_of(one, dev)
+        wall, busy, groups = _profile_groups(one, dev)
+        print(f"one giant's inner sum (K10 as a composite), level {t.level}, "
+              f"{pts.shape[0]} babies, {'double' if t.dh else 'single'}-hoisted"
+              f"{' with its two mod-downs' if t.dh else ''}: launches "
+              f"{json.dumps(counts)}, PyTorch kernels "
+              f"{groups.get('torch kernels', {}).get('launches', 0)}, device "
+              f"{busy:.3f} ms, wall {wall:.2f} ms")
+    del other
+    torch.cuda.empty_cache()
+
+
+def layer_times(ctx, dev, card, fam, held) -> None:
+    """Warm times of both fused layers by stage, then the hoisting A/B.
+    Runs after the launch counts of the paths are read."""
+    cr_maps, raw, ker, bn_a, bn_b = held["cr"]
+    maps, ct, rker, ra, rb = held["rn"]
+    _time_layer("ResNet-20 Conv_sparse layer (32^2, 16 -> 16, log_sparse 2)",
+                lambda cb: resnet_layer(ctx, fam, maps, ct, rker, ra, rb, cb),
+                dev, card)
+    inp = convops.prep_input(raw, 127, 128, ctx.params.n, 1)
+    ct0 = ctx.encrypt(ctx.encoder.encode_coeffs(inp, ctx.params.scale,
+                                                convops.ECD_LEVEL))
+    _time_layer("convReLU 3 0 1 (128^2 x 4, log_sparse 0)",
+                lambda cb: eval_conv_bn_relu(
+                    ctx, fam, ct0, ker, bn_a, bn_b, 0.0, cli.POW, 128, 127, 3,
+                    4, 4, 1, 0, 1, 2, 0, "Conv", cr_maps, on_stage=cb),
+                dev, card)
+    hoisting_ab(ctx, dev, card, fam)
+
+
+def memory_line(ctx, dev, fam, what: str) -> None:
+    kb = key_bytes(ctx)
+    n_keys = {k: sum(1 for t in ctx.switching_keys if t[0] == k) for k in kb}
+    pts = {ls: fam[ls].plaintext_bytes() for ls in (0, 2) if ls in fam}
+    print(f"memory {what}: switching keys "
+          + ", ".join(f"{k} {n_keys[k]} keys {_gib(v)}" for k, v in kb.items())
+          + "; bootstrap plaintexts "
+          + ", ".join(f"log_sparse {ls} {_gib(v)}" for ls, v in pts.items())
+          + f"; allocated now {_gib(torch.cuda.memory_allocated(dev))}, peak "
+          f"{_gib(torch.cuda.max_memory_allocated(dev))}")
+
+
 def _read_counts(path: str, dev) -> dict:
     """The wrappers' counters after one path: every kernel launched, no
     plain version called.  Then zeroed for the next path."""
@@ -724,9 +1083,20 @@ def main() -> int:
     print(f"peak device memory after the evaluator and the ReLU "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
 
+    fam = boot.BootstrapperFamily(ctx)
+    for ls in (0, 2):
+        boot_path(ctx, dev, fam, ls)
+    paths["boot path"] = _read_counts("boot path", dev)
+    memory_line(ctx, dev, fam, "after the boot path")
+    held = layer_path(ctx, dev, fam)
+    paths["layer path"] = _read_counts("layer path", dev)
+    memory_line(ctx, dev, fam, "after the layer path")
+
     where_time_goes(dev, card)
     evaluator_times(ctx, dev, card, a, b)
     relu_times(ctx, dev, card)
+    layer_times(ctx, dev, card, fam, held)
+    memory_line(ctx, dev, fam, "at the end")
 
     src = "optimal_conv_tpu_torch/csrc/"
     rows = [dict(name="mont_mul", route="cuda", source=src + "mont_mul.cu",

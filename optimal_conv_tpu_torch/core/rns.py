@@ -11,7 +11,12 @@ target primes {r_i}:
 v is computed in float32 as the JAX package does.  A ±1 change of v
 only selects another representative x + u·Q, still a valid extension,
 but to keep the bits equal the sum runs in the same order, j = 0…K−1,
-as separate multiplies and adds (no fused multiply-add).
+each step one fused multiply-add, v ← fl32(f32(y_j)·f32(1/q_j) + v): that
+is what XLA compiles the JAX package's sum to on the CPU.  The
+difference decides v wherever the exact sum lies within a float32
+rounding of an integer, which is every coefficient of a polynomial just
+raised from q0 to the full chain (``bootstrap.mod_raise``): its integer
+is tiny beside the digit's product of primes.
 """
 
 from __future__ import annotations
@@ -24,12 +29,19 @@ from . import modmath as mm
 
 def _f32_count(y: torch.Tensor, inv_src) -> torch.Tensor:
     """v = ⌊Σ_j f32(y_j)·f32(1/q_j)⌋ over axis -2 of y, accumulated
-    j = 0, 1, … as separate float32 operations.  inv_src[j] is f32(1/q_j),
-    a float or a tensor that broadcasts against y[..., j, :]."""
+    j = 0, 1, … in float32 with one rounding a step (a fused
+    multiply-add).  inv_src[j] holds the float32 value f32(1/q_j) as a
+    float or a float64 tensor that broadcasts against y[..., j, :].
+
+    The product of two float32 values is exact in float64, so the sum
+    there, rounded to float32, is the fused result (but for a double
+    rounding once in about 2^29 steps); PyTorch has no fused
+    multiply-add that rounds alike on the CPU and on the card."""
+    yd = y.to(torch.float32).to(torch.float64)
     v = None
     for j, inv in enumerate(inv_src):
-        t = y[..., j, :].to(torch.float32) * inv
-        v = t if v is None else v + t
+        t = yd[..., j, :] * inv
+        v = (t if v is None else t + v.to(torch.float64)).to(torch.float32)
     return torch.floor(v).to(torch.int64)
 
 
@@ -124,7 +136,8 @@ class DigitExtender:
         self.qhat_inv_mont = t(qhat_inv)[..., None]
         self.qhat_mont = t(qhat)[..., None]                         # [alpha, beta, R, 1]
         self.qmod_table = t(qmod)                                   # [beta, R, alpha+1]
-        self.inv_src = torch.from_numpy(inv_src).to(device)         # [beta, alpha]
+        # the float32 values, held as float64 for _f32_count
+        self.inv_src = torch.from_numpy(inv_src.astype(np.float64)).to(device)  # [beta, alpha]
         self.dq, self.dqinv = (x[None] for x in
                                mm.limb_tables(dst_mods, device)[:2])  # [1, R, 1]
 

@@ -4,7 +4,8 @@
 
 Needs one CUDA device.  Prints the card's name and power limit, the
 whole-kernel SASS counts of ``csrc/mont_mul.cu``, then for each timed
-shape (the conv's at 16²×256 and a level-15 ct × ct product's) the
+shape (the conv's at 16²×256, a level-15 ct × ct product's and the
+bootstrap transforms' at levels 27, 3 and 2) the
 kernel's time beside the time its bytes need at 3.35 TB/s (each distinct
 input byte read once, each output byte written once),
 and the wrapper's host microseconds per call at [2, N].
@@ -98,6 +99,34 @@ def evaluator_cases(p, rng, dev) -> list[dict]:
     ]
 
 
+def bootstrap_cases(p, rng, dev, nb: int = 8) -> list[dict]:
+    """K1's shapes in the bootstrap's BSGS transforms on the fork's chain:
+    at level 27 (the first CtoS transform) and at the StoC levels 3 and 2,
+    one giant's inner products with its `nb` babies on Q_level·P (the
+    double-hoisted form) and on Q_level, and the key inner product of the
+    level's key-switch digits.  Nothing is broadcast.  The cases under
+    40 MB are timed with the L2 flushed."""
+    n = p.n
+    cases = []
+    for level in (27, 3, 2):
+        beta = len(p.digits(level))
+        qp = [p.moduli[i] for i in p.qp_idx(level)]
+        qs = p.q_moduli[: level + 1]
+        tq, tqi, _, _ = mm.limb_tables(qp, dev)
+        sq, sqi, _, _ = mm.limb_tables(qs, dev)
+        for mods, lead, q, qi, what in (
+                (qp, nb, tq, tqi, "inner product on QP"),
+                (qs, nb, sq, sqi, "inner product on Q"),
+                (qp, beta, tq, tqi, "key inner product")):
+            a = residues(mods, (lead,), n, rng, dev)
+            b = residues(mods, (lead,), n, rng, dev)
+            shape = f"[{lead},{len(mods)},{n}]"
+            cases.append(dict(shape=f"{shape} x {shape}", args=(a, b, q, qi),
+                              c=None, cold=a.numel() * 8 < 40e6,
+                              what=f"{what}, level {level}"))
+    return cases
+
+
 def run_case(case) -> torch.Tensor:
     """The product of one timed case through the port's entry points."""
     a, b, q, qinv = case["args"]
@@ -185,7 +214,8 @@ def main(argv=None) -> int:
         print(f"mont_mul_kernel {key}: {k}")
     p = boot_params(16)
     rng = np.random.default_rng(2024)
-    for case in timed_cases(p, rng, dev) + evaluator_cases(p, rng, dev):
+    for case in (timed_cases(p, rng, dev) + evaluator_cases(p, rng, dev)
+                 + bootstrap_cases(p, rng, dev)):
         t = time_case(case, dev)
         print(f"K1 {case['shape']}: {t['ms']:.4f} ms"
               f"{' (cold L2; warm %.4f)' % t['warm_l2_ms'] if case['cold'] else ''}"

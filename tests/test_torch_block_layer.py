@@ -1,0 +1,65 @@
+"""One whole fused layer of the port against the JAX package (CPU, plain
+versions of the kernels): conv + BN, CtoS with EvalMod, the minimax ReLU,
+the keep-mask repack and StoC, kind ``Conv_sparse`` at log_sparse 2, at
+logN 10 on ``mini_boot_params(10, n_relu=14)`` with the geometry of
+``tests/test_pipeline.py``.  The output ciphertext is bit-exact against
+JAX on the JAX context's keys, with equal level and scale, and meets the
+JAX test's bars against numpy conv + exact ReLU.  The JAX side of this one
+case takes minutes, so it has a file, and with it a test worker, of its
+own; the helpers are ``tests/test_torch_pipeline.py``'s.
+"""
+
+import numpy as np
+import pytest
+
+from optimal_conv_tpu.ckks.bootstrap import SplitBootstrapper as JaxBoot
+from optimal_conv_tpu.ops import pipeline as jpipe
+
+from optimal_conv_tpu_torch.ckks.bootstrap import SplitBootstrapper
+from optimal_conv_tpu_torch.ops import conv as convops
+from optimal_conv_tpu_torch.ops import pipeline as tpipe
+from optimal_conv_tpu_torch.ops import repack as rp
+from optimal_conv_tpu_torch.ops.relu import relu_np
+
+from .test_torch_pipeline import BOOT, IN_WID, KER, MB, POW, Pair, _same
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return Pair()
+
+
+def test_conv_bn_relu_sparse_bit_exact_and_bars(pair, monkeypatch):
+    """One ResNet block-1 style layer: Conv_sparse at log_sparse 2."""
+    raw = IN_WID - KER // 2
+    norm, ls = 4, 2
+    ib = ob = MB // norm
+    img = pair.rng.uniform(-0.8, 0.8, (raw, raw, ib))
+    ker = pair.rng.uniform(-1, 1, (KER, KER, ib, ob)) / 4.0
+    bn_a = pair.rng.uniform(0.8, 1.2, ob)
+    bn_b = pair.rng.uniform(-0.2, 0.2, ob)
+    jct, tct = pair.encrypt_coeffs(
+        convops.prep_input(img.ravel(), raw, IN_WID, pair.n, norm))
+    mask = rp.gen_keep_vec_sparse(pair.n // 2, IN_WID, raw, ls)
+    args = (ker.ravel(), bn_a, bn_b, 0.0, POW, IN_WID, raw, KER, ib, ob, norm,
+            0, 1, 2, ls, "Conv_sparse")
+    monkeypatch.setenv("OPTCONV_DOUBLE_HOIST", "1")
+    jbt = {ls: JaxBoot(pair.j, log_sparse=ls, **BOOT)}
+    tbt = {ls: SplitBootstrapper(pair.t, log_sparse=ls, double_hoist=True,
+                                 **BOOT)}
+    jout = jpipe.eval_conv_bn_relu(pair.j, jbt, jct, *args,
+                                   jpipe.LayerMaps(ext_idx=[mask, None]))
+    seen = []
+    tout = pair.run_port(lambda: tpipe.eval_conv_bn_relu(
+        pair.t, tbt, tct, *args, tpipe.LayerMaps(ext_idx=[mask, None]),
+        debug_hook=lambda name, _: seen.append(name)))
+    assert seen == ["conv", "ctos", "relu", "repack", "stoc"]
+    _same(tout, jout)
+    assert tout.level == 1
+
+    got = convops.post_process(pair.t.decrypt_decode_coeffs(tout), raw, IN_WID)
+    got = got.reshape(raw, raw, MB)[:, :, ::norm][:, :, :ob]
+    want = relu_np(convops.conv2d_same_np(img, ker) * bn_a + bn_b)
+    err = np.abs(got - want)
+    assert err.max() < 5e-2, f"max err {err.max()}"
+    assert np.mean(err < 2.5e-2) > 0.97

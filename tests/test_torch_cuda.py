@@ -262,3 +262,59 @@ def test_rotate_hoisted_on_card_equals_cpu(dev, contexts, level):
     for k in rots[:2]:
         for g, w in zip(lazy_got[k], lazy_want[k]):
             assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("dh", [False, True], ids=["single", "double"])
+def test_linear_transform_on_card_equals_cpu(dev, contexts, dh):
+    """One BSGS transform at level 27 (six key-switch digits), in both
+    forms: identity baby, key-switched babies, giants with a subset of the
+    babies.  The card's residues equal the CPU's."""
+    from optimal_conv_tpu_torch.ckks.bootstrap import LinearTransform
+
+    cpu, card, _ = contexts
+    p = cpu.params
+    rng = np.random.default_rng(8)
+    diags = {k: rng.uniform(-1, 1, p.slots) + 1j * rng.uniform(-1, 1, p.slots)
+             for k in (0, 1, 2, 5, 9, 12)}
+    ct = cpu.encrypt(cpu.encoder.encode_slots(rng.uniform(-1, 1, p.slots),
+                                              p.scale, 27))
+    lt_cpu = LinearTransform(cpu, diags, 27, double_hoist=dh)
+    lt_card = LinearTransform(card, diags, 27, double_hoist=dh)
+    for (_, _, a, _), (_, _, b, _) in zip(lt_cpu.stacked, lt_card.stacked):
+        assert torch.equal(b.cpu(), a)
+    want = lt_cpu(ct)
+    _share_keys(cpu, card)
+    held = len(card.switching_keys)
+    got = lt_card(_to_card(ct, dev))
+    assert len(card.switching_keys) == held
+    _same_ct(got, want)
+
+
+def test_bootstrap_on_card_equals_cpu(dev, contexts):
+    """ctos -> stoc at log_sparse 2 on the fork's chain at logN 12: every
+    ciphertext the card returns equals the CPU's, and the coefficients
+    come back."""
+    from optimal_conv_tpu_torch.ckks.bootstrap import SplitBootstrapper
+
+    cpu, card, _ = contexts
+    p = cpu.params
+    ls = 2
+    b_cpu = SplitBootstrapper(cpu, log_sparse=ls)
+    b_card = SplitBootstrapper(card, log_sparse=ls)
+    v = np.zeros(p.n)
+    v[:: 1 << ls] = np.random.default_rng(9).uniform(-1, 1, p.n >> ls)
+    ct = cpu.encrypt(cpu.encoder.encode_coeffs(v, b_cpu.delta0, 0))
+    mid, none = b_cpu.ctos(ct)
+    want = b_cpu.stoc(mid, None)
+    _share_keys(cpu, card)
+    stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV)
+    before = [(s.launches, s.plain_calls) for s in stats]
+    got_mid, got_none = b_card.ctos(_to_card(ct, dev))
+    got = b_card.stoc(got_mid, None)
+    for s, (launches, plain) in zip(stats, before):
+        assert s.launches > launches
+    assert none is None and got_none is None
+    _same_ct(got_mid, mid)
+    _same_ct(got, want)
+    assert got.level == 1
+    np.testing.assert_allclose(card.decrypt_decode_coeffs(got), v, atol=3e-2)

@@ -1,7 +1,10 @@
 """Package boundaries of the port: no JAX, explicit devices, and the CPU
 path of the CUDA wrappers."""
 
+import ast
+import inspect
 import os
+import re
 import subprocess
 import sys
 
@@ -19,7 +22,12 @@ MODULES = ["optimal_conv_tpu_torch", "optimal_conv_tpu_torch.cli",
            "optimal_conv_tpu_torch.interop", "optimal_conv_tpu_torch.device",
            "optimal_conv_tpu_torch.ops.conv",
            "optimal_conv_tpu_torch.ops.relu",
+           "optimal_conv_tpu_torch.ops.pipeline",
+           "optimal_conv_tpu_torch.ops.repack",
            "optimal_conv_tpu_torch.ckks.polyeval",
+           "optimal_conv_tpu_torch.ckks.bootstrap",
+           "optimal_conv_tpu_torch.ckks.dft",
+           "optimal_conv_tpu_torch.utils.mont_bench",
            "optimal_conv_tpu_torch.models.resnet",
            "optimal_conv_tpu_torch.utils.timing",
            "optimal_conv_tpu_torch.core.rns"]
@@ -43,6 +51,62 @@ def test_import_pulls_in_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[] True", out.stdout
+
+
+def _py_files():
+    pkg = os.path.join(ROOT, "optimal_conv_tpu_torch")
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(pkg):
+        out += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    return out
+
+
+def test_no_module_of_the_port_names_jax_or_reads_the_environment():
+    """Every source file of the port and ``chip_smoke.py``: no import of
+    jax or of the JAX package, and no ``os.environ`` in the modules of the
+    bootstrapper and the fused layer (their options are arguments)."""
+    files = _py_files()
+    assert len(files) > 25
+    for path in files:
+        tree = ast.parse(open(path).read())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib",
+                                                  "optimal_conv_tpu"), \
+                    f"{path} imports {name}"
+    for rel in ("ckks/bootstrap.py", "ckks/dft.py", "ops/pipeline.py",
+                "ops/repack.py"):
+        src = open(os.path.join(ROOT, "optimal_conv_tpu_torch", rel)).read()
+        assert "environ" not in src and "getenv" not in src, rel
+
+
+@pytest.mark.parametrize("name", ["ckks.dft", "ops.repack"])
+def test_copied_numpy_module_equals_its_original(name):
+    """``ckks/dft.py`` and ``ops/repack.py`` are copies of the JAX
+    package's numpy-only modules: the same functions with the same source,
+    but for the paths of the Go sources in comments and docstrings."""
+    import importlib
+
+    ours = importlib.import_module(f"optimal_conv_tpu_torch.{name}")
+    theirs = importlib.import_module(f"optimal_conv_tpu.{name}")
+
+    def functions(mod):
+        """{name: function}, the cached ones by what they wrap."""
+        fns = {k: getattr(v, "__wrapped__", v) for k, v in vars(mod).items()}
+        return {k: f for k, f in fns.items()
+                if inspect.isfunction(f) and f.__module__ == mod.__name__}
+
+    a, b = functions(ours), functions(theirs)
+    assert sorted(a) == sorted(b) and len(a) >= 7
+    for k in a:
+        # the original cites the Go sources by an absolute path
+        assert inspect.getsource(a[k]) == \
+            re.sub(r"/\w+/reference/", "", inspect.getsource(b[k])), k
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
@@ -79,7 +143,22 @@ def test_cli_conv_on_cpu(capsys):
     assert "logN=16" in out and "Conv (with BN) done" in out
     avg = float(out.split("prec (log2): avg")[1].split()[0])
     assert avg > 24.0, out
-    for argv in (["convReLU", "3", "0", "1"], ["resnet", "3", "20", "1", "1"],
-                 ["conv", "3", "0", "1", "--bl"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
+    for argv, names in ((["convReLU", "3", "0", "1", "--debug"], "ops/debug.py"),
+                        (["resnet", "3", "20", "1", "1"], "models/plain.py"),
+                        (["conv", "3", "0", "1", "--bl"], "ops/baseline.py")):
+        with pytest.raises(SystemExit, match="not ported yet") as stop:
             cli.main(argv + ["--device", "cpu"])
+        assert names in str(stop.value)
+    assert "bootstrap" not in " ".join(cli.MISSING.values())
+
+
+def test_cli_conv_relu_needs_its_device(monkeypatch):
+    """convReLU is wired to the fused layer; without a card and without
+    ``--device cpu`` it fails at once instead of moving to the CPU."""
+    from optimal_conv_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        cli.main(["convReLU", "3", "0", "1"])
+    with pytest.raises(SystemExit, match="kernel width"):
+        cli.main(["convReLU", "4", "0", "1", "--device", "cpu"])
