@@ -31,12 +31,29 @@ the port's main path at logN=16 on the Go fork's modulus chain:
   * the fused layer (``layer_path``): ``convReLU 3 0 1`` through the CLI's
     functions against the Go binary's decrypted outputs (mean agreement
     on its ten values > 12 bits, mean precision against numpy conv +
-    exact ReLU > 7.0 bits), and one ResNet-20 CIFAR-10 block-1 layer at
-    the model's width (``Conv_sparse``, 32², 16 → 16 channels, norm 4,
-    log_sparse 2, pow 6, seeded weights) against numpy conv + BN + ReLU,
-    relative to 2^pow: 2e-2 everywhere, 5e-3 where |pre-activation| / 2^pow
-    > 0.05; its output ciphertext then goes through the same layer again,
-    held to the same bars against the numpy layer applied twice.
+    exact ReLU > 7.0 bits), and the runner's second block-1 layer of
+    ResNet-20 CIFAR-10 (``Conv_sparse``, 32², 16 → 16 channels, norm 4,
+    log_sparse 2, pow 6, ``random_weights(seed=1)``) on a seeded
+    16-channel input against numpy conv + BN + ReLU, relative to 2^pow:
+    2e-2 everywhere, 5e-3 where |pre-activation| / 2^pow > 0.05; its
+    output ciphertext then goes through the same layer again, held to the
+    same bars against the numpy layer applied twice;
+  * the whole model (``resnet_path``, last, on a fresh context):
+    ResNet-20 CIFAR-10 wide 1 through ``models.resnet.ResNetRunner``, 19
+    fused layers and the FC head on 3 images (the configuration, weights
+    and images of ``python -m optimal_conv_tpu_torch resnet 3 20 1 3``),
+    each encrypted argmax equal to ``plain_forward``'s and its logits
+    within 0.15 of them; each layer's wall ms and launches, the block
+    times and the memory after the first image.  On the first image each
+    layer's output is decrypted and held against the plain model to the
+    block-1 layer's bars (2e-2 of 2^pow, 5e-3 where |pre|/2^pow > 0.05).
+    ``random_weights`` drowns the image (its three plain logits differ
+    by about 1e-10), so the runner then drives every layer once more,
+    each on a fresh seeded input in [-16, 16] in its own layout (the
+    strided transitions at log_sparse 1 and 2 and the layers at
+    log_sparse 3 and 4 included), held to the same bars, and the FC head
+    on one in [-1, 1] to 2e-3.  Last, one warm image under the profiler,
+    layer by layer.
 
 Every kernel's launch counter is zeroed just before each of these
 paths and must be nonzero after it, with no plain-version call.  Beside each
@@ -57,14 +74,16 @@ paths one warm conv at 16²×256 is split into host-side kernel encoding
 and the device-side ``conv_then_pack``, one warm ``eval_relu`` is
 timed, and both fused layers are timed warm stage by stage, with the
 single- against the double-hoisted form of the four CtoS transforms;
-``torch.profiler`` lists the device kernels of each.  Any failed check raises and the script exits
-nonzero.  The last lines are a JSON object of per-kernel results, the
+``torch.profiler`` lists the device kernels of each.  The whole-model
+path runs after these, once the earlier context is dropped.  Any failed
+check raises and the script exits nonzero.  The last lines are a JSON object of per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it fails at once.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -81,11 +100,14 @@ from optimal_conv_tpu_torch.ckks.params import boot_params
 from optimal_conv_tpu_torch.core import cuda_lib, mont_kernel, ntt_kernel
 from optimal_conv_tpu_torch.core import modmath as mm
 from optimal_conv_tpu_torch.core.ntt import NttContext, _ntt_fwd, _ntt_inv
-from optimal_conv_tpu_torch.models.resnet import (ResNetConfig,
+from optimal_conv_tpu_torch.models import resnet as resnet_mod
+from optimal_conv_tpu_torch.models.plain import plain_forward, random_weights
+from optimal_conv_tpu_torch.models.resnet import (ResNetConfig, ResNetRunner,
                                                   encrypt_fc_input, fc_conv)
 from optimal_conv_tpu_torch.ops import conv as convops
 from optimal_conv_tpu_torch.ops import repack as rp
-from optimal_conv_tpu_torch.ops.pipeline import LayerMaps, eval_conv_bn_relu
+from optimal_conv_tpu_torch.ops.debug import precision_stats
+from optimal_conv_tpu_torch.ops.pipeline import eval_conv_bn_relu
 from optimal_conv_tpu_torch.ops.relu import eval_relu, relu_np
 from optimal_conv_tpu_torch.utils import kernel_info, mont_bench
 from optimal_conv_tpu_torch.utils.timing import cuda_ms, cuda_ms_cold
@@ -517,7 +539,11 @@ def where_time_goes(dev, card):
 def _profile_groups(fn, dev):
     """One call of fn() under ``torch.profiler``: → (wall ms, device
     kernel ms, {group: {launches, ms}}) with the device kernels grouped
-    into K1, K2, K3 and PyTorch's own."""
+    into K1, K2, K3 and PyTorch's own.  Reads the profiler's raw events
+    (``prof.profiler.kineto_results``, private; checked on torch
+    2.11.0+cu128): building its Python event tree costs about 15 s a
+    layer.  The first call holds the raw count of device events against
+    the event tree's, so a change in that private API fails here."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -525,20 +551,30 @@ def _profile_groups(fn, dev):
         fn()
         torch.cuda.synchronize(dev)
         wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = [ev for ev in prof.profiler.kineto_results.events()
+           if ev.device_type() == cuda]
+    if not _profile_groups.checked:
+        tree = sum(1 for ev in prof.events() if ev.device_type == cuda)
+        check(len(raw) == tree, f"profiler: {len(raw)} raw device events, "
+              f"{tree} in the event tree")
+        _profile_groups.checked = True
     groups: dict = {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        key = ("ntt_pass<inverse>" if "ntt_pass<true>" in ev.name
-               or "ntt_pass<(bool)1>" in ev.name else
-               "ntt_pass<forward>" if "ntt_pass" in ev.name else
-               "mont_mul_kernel" if "mont_mul" in ev.name else "torch kernels")
-        g = groups.setdefault(key, [0, 0.0])
+    for ev in raw:
+        name = ev.name()
+        key = ("ntt_pass<inverse>" if "ntt_pass<true>" in name
+               or "ntt_pass<(bool)1>" in name else
+               "ntt_pass<forward>" if "ntt_pass" in name else
+               "mont_mul_kernel" if "mont_mul" in name else "torch kernels")
+        g = groups.setdefault(key, [0, 0])
         g[0] += 1
-        g[1] += getattr(ev, "device_time", None) or getattr(ev, "cuda_time", 0)
-    out = {k: dict(launches=g[0], ms=round(g[1] / 1e3, 3))   # from microseconds
+        g[1] += ev.duration_ns()
+    out = {k: dict(launches=g[0], ms=round(g[1] / 1e6, 3))
            for k, g in groups.items()}
-    return wall, sum(g[1] for g in groups.values()) / 1e3, out
+    return wall, sum(g[1] for g in groups.values()) / 1e6, out
+
+
+_profile_groups.checked = False
 
 
 def _slot_err(ctx, ct, want) -> np.ndarray:
@@ -801,40 +837,35 @@ def boot_path(ctx, dev, fam, ls: int) -> None:
           f"{np.log2(up.scale):.6f}, after stoc {np.log2(out.scale):.6f}")
 
 
-# One ResNet-20 CIFAR-10 block-1 layer at logN 16: 32 x 32 padded grid, 31
-# raw, 3 x 3 kernel, 16 -> 16 channels at stride 4 of the 64 channel slots
-RESNET_LAYER = dict(in_wid=32, raw=31, ker_wid=3, ch=16, norm=4, ls=2, pow_=6.0)
+def block1_runner(ctx):
+    """The runner of ``python -m optimal_conv_tpu_torch resnet 3 20 1``
+    (ResNet-20 CIFAR-10, wide 1) and its weights, ``random_weights(seed=1)``."""
+    return ResNetRunner(ctx, ResNetConfig()), random_weights(3, 20, seed=1)
 
 
-def resnet_layer_inputs(seed: int = 11):
-    """A seeded image in [-1, 1] and He-style weights: normal(0, 0.5 /
-    sqrt(9 * 16)) kernels, bn_a in [0.8, 1.2], bn_b in [-0.1, 0.1]."""
-    g = RESNET_LAYER
-    rng = np.random.default_rng(seed)
-    img = rng.uniform(-1, 1, (g["raw"], g["raw"], g["ch"]))
-    ker = rng.normal(0, 0.5 / np.sqrt(g["ker_wid"] ** 2 * g["ch"]),
-                     (g["ker_wid"], g["ker_wid"], g["ch"], g["ch"]))
-    return img, ker, rng.uniform(0.8, 1.2, g["ch"]), rng.uniform(-0.1, 0.1, g["ch"])
+def block1_layer(ctx, fam, runner, w, ct, on_stage=None, li=1):
+    """Layer `li` of block 1 (32^2 grid, 31 raw, 16 -> 16 channels at
+    stride 4 of the 64 channel slots, log_sparse 2, pow 6) with the
+    runner's own keep mask, as ``ResNetRunner.infer`` calls it."""
+    cfg, k = runner.cfg, w.convs[li]
+    return eval_conv_bn_relu(ctx, fam, ct, k.ravel(), w.bn_a[li], w.bn_b[li],
+                             cfg.alpha, cfg.mid_pow, cfg.in_wids[0],
+                             cfg.raw_in_wids[0], k.shape[0], k.shape[2],
+                             k.shape[3], runner.norm[0], 0, 1, 2,
+                             runner.log_sparse[0], "Conv_sparse",
+                             runner.keep_maps[0], on_stage=on_stage)
 
 
-def resnet_layer(ctx, fam, maps, ct, ker, bn_a, bn_b, on_stage=None):
-    g = RESNET_LAYER
-    return eval_conv_bn_relu(ctx, fam, ct, ker.ravel(), bn_a, bn_b, 0.0,
-                             g["pow_"], g["in_wid"], g["raw"], g["ker_wid"],
-                             g["ch"], g["ch"], g["norm"], 0, 1, 2, g["ls"],
-                             "Conv_sparse", maps, on_stage=on_stage)
-
-
-def _layer_check(ctx, out, pre, what) -> None:
-    """The layer's decrypted output against relu(pre), relative to 2^pow."""
-    g = RESNET_LAYER
-    p = ctx.params
-    unit = 2.0 ** g["pow_"]
+def _layer_check(ctx, runner, out, pre, what, block=0, pow_=None) -> None:
+    """The layer's decrypted output, in the layout of the runner's block
+    `block`, against relu(pre), relative to 2^pow."""
+    cfg = runner.cfg
+    raw, in_wid = cfg.raw_in_wids[block], cfg.in_wids[block]
+    unit = 2.0 ** (cfg.mid_pow if pow_ is None else pow_)
     check(out.level == 1, f"{what}: landed at level {out.level}, not 1")
-    got = convops.post_process(ctx.decrypt_decode_coeffs(out), g["raw"],
-                               g["in_wid"])
-    mb = p.n // g["in_wid"] ** 2
-    got = got.reshape(g["raw"], g["raw"], mb)[:, :, ::g["norm"]][:, :, :g["ch"]]
+    got = convops.post_process(ctx.decrypt_decode_coeffs(out), raw, in_wid)
+    got = got.reshape(raw, raw, runner.max_batch[block])[:, :, ::runner.norm[block]]
+    got = got[:, :, :pre.shape[-1]]
     check(np.isfinite(got).all(), f"{what}: bad output")
     err = np.abs(got - relu_np(pre))
     far = np.abs(pre) / unit > 0.05
@@ -846,11 +877,34 @@ def _layer_check(ctx, out, pre, what) -> None:
           f"0.05 ({int(far.sum())} values) max "
           f"{(err[far].max() / unit if far.any() else 0.0):.3e} of 2^pow (bar "
           f"5e-3); share under 2.5e-2 absolute {np.mean(err < 2.5e-2):.4f}; "
+          f"std of relu(pre) {relu_np(pre).std():.3e}; "
           f"log2(scale) {np.log2(out.scale):.6f}")
     check(err.max() / unit < 2e-2, f"{what}: max err {err.max() / unit} of 2^pow")
     check(not far.any() or err[far].max() / unit < 5e-3,
           f"{what}: err {err[far].max() / unit if far.any() else 0} of 2^pow "
           f"where |pre|/2^pow > 0.05")
+
+
+def block1_twice(ctx, fam):
+    """The runner's block-1 layer on a seeded 16-channel input, then on its
+    own output: → (runner, weights, input ciphertext)."""
+    p = ctx.params
+    runner, w = block1_runner(ctx)
+    cfg, li = runner.cfg, 1
+    raw, in_wid = cfg.raw_in_wids[0], cfg.in_wids[0]
+    ch = w.convs[li].shape[2]
+    img = np.random.default_rng(11).uniform(-1, 1, (raw, raw, ch))
+    ct = ctx.encrypt(ctx.encoder.encode_coeffs(
+        convops.prep_input(img.ravel(), raw, in_wid, p.n, runner.norm[0]),
+        p.scale, convops.ECD_LEVEL))
+    out1 = block1_layer(ctx, fam, runner, w, ct)
+    pre1 = convops.conv2d_same_np(img, w.convs[li]) * w.bn_a[li] + w.bn_b[li]
+    _layer_check(ctx, runner, out1, pre1, "ResNet-20 Conv_sparse layer")
+    out2 = block1_layer(ctx, fam, runner, w, out1)
+    pre2 = (convops.conv2d_same_np(relu_np(pre1), w.convs[li]) * w.bn_a[li]
+            + w.bn_b[li])
+    _layer_check(ctx, runner, out2, pre2, "the same layer on its own output")
+    return runner, w, ct
 
 
 def layer_path(ctx, dev, fam):
@@ -875,24 +929,10 @@ def layer_path(ctx, dev, fam):
           f"conv + exact ReLU mean {prec.mean():.2f} min {prec.min():.2f} bits "
           f"(bar mean > 7.0; the Go binary's own 7.73 / 6.1); max err "
           f"{np.abs(got - want).max():.3e}")
-    print(cli.precision_stats(want, got))
+    print(precision_stats(want, got, distribution=True))
     check(agree.mean() > 12.0, f"convReLU 3 0 1 vs golden: {agree.mean()} bits")
     check(prec.mean() > 7.0, f"convReLU 3 0 1 precision: {prec.mean()} bits")
-
-    g = RESNET_LAYER
-    img, rker, ra, rb = resnet_layer_inputs()
-    maps = LayerMaps(ext_idx=[rp.gen_keep_vec_sparse(p.n // 2, g["in_wid"],
-                                                     g["raw"], g["ls"]), None])
-    ct = ctx.encrypt(ctx.encoder.encode_coeffs(
-        convops.prep_input(img.ravel(), g["raw"], g["in_wid"], p.n, g["norm"]),
-        p.scale, convops.ECD_LEVEL))
-    out1 = resnet_layer(ctx, fam, maps, ct, rker, ra, rb)
-    pre1 = convops.conv2d_same_np(img, rker) * ra + rb
-    _layer_check(ctx, out1, pre1, "ResNet-20 Conv_sparse layer")
-    out2 = resnet_layer(ctx, fam, maps, out1, rker, ra, rb)
-    pre2 = convops.conv2d_same_np(relu_np(pre1), rker) * ra + rb
-    _layer_check(ctx, out2, pre2, "the same layer on its own output")
-    return dict(cr=(cr_maps, raw, ker, bn_a, bn_b), rn=(maps, ct, rker, ra, rb))
+    return dict(cr=(cr_maps, raw, ker, bn_a, bn_b), rn=block1_twice(ctx, fam))
 
 
 class StageClock:
@@ -999,10 +1039,9 @@ def layer_times(ctx, dev, card, fam, held) -> None:
     """Warm times of both fused layers by stage, then the hoisting A/B.
     Runs after the launch counts of the paths are read."""
     cr_maps, raw, ker, bn_a, bn_b = held["cr"]
-    maps, ct, rker, ra, rb = held["rn"]
+    runner, w, ct = held["rn"]
     _time_layer("ResNet-20 Conv_sparse layer (32^2, 16 -> 16, log_sparse 2)",
-                lambda cb: resnet_layer(ctx, fam, maps, ct, rker, ra, rb, cb),
-                dev, card)
+                lambda cb: block1_layer(ctx, fam, runner, w, ct, cb), dev, card)
     inp = convops.prep_input(raw, 127, 128, ctx.params.n, 1)
     ct0 = ctx.encrypt(ctx.encoder.encode_coeffs(inp, ctx.params.scale,
                                                 convops.ECD_LEVEL))
@@ -1017,13 +1056,245 @@ def layer_times(ctx, dev, card, fam, held) -> None:
 def memory_line(ctx, dev, fam, what: str) -> None:
     kb = key_bytes(ctx)
     n_keys = {k: sum(1 for t in ctx.switching_keys if t[0] == k) for k in kb}
-    pts = {ls: fam[ls].plaintext_bytes() for ls in (0, 2) if ls in fam}
+    pts = {ls: fam[ls].plaintext_bytes() for ls in range(5) if ls in fam}
     print(f"memory {what}: switching keys "
           + ", ".join(f"{k} {n_keys[k]} keys {_gib(v)}" for k, v in kb.items())
           + "; bootstrap plaintexts "
           + ", ".join(f"log_sparse {ls} {_gib(v)}" for ls, v in pts.items())
           + f"; allocated now {_gib(torch.cuda.memory_allocated(dev))}, peak "
           f"{_gib(torch.cuda.max_memory_allocated(dev))}")
+
+
+LAYER_ARGS = inspect.signature(eval_conv_bn_relu)
+
+
+class LayerOracle:
+    """Holds each layer of one ``runner.infer`` against the plain model,
+    after the layer's time is taken.  Without `amp` the plain model runs
+    on the image, as ``plain_forward`` does; with it every layer gets a
+    fresh seeded input in [-amp, amp] in place of the previous layer's
+    output, and the FC head one in [-1, 1], so that each layer's check
+    depends on an input that is not drowned."""
+
+    def __init__(self, ctx, runner, w, image, amp=None):
+        self.ctx, self.runner, self.w, self.amp = ctx, runner, w, amp
+        self.x, self.li, self.block = image, 0, 0
+
+    def _encrypt(self, x):
+        ctx, runner, b = self.ctx, self.runner, self.block
+        if self.li == 0:
+            return runner.encrypt_image(x)
+        cfg, p = runner.cfg, ctx.params
+        return ctx.encrypt(ctx.encoder.encode_coeffs(
+            convops.prep_input(x.ravel(), cfg.raw_in_wids[b], cfg.in_wids[b],
+                               p.n, runner.norm[b]),
+            p.scale, convops.ECD_LEVEL))
+
+    def layer_input(self, ct):
+        if self.amp is None:
+            return ct
+        raw = self.runner.cfg.raw_in_wids[self.block]
+        cin = self.w.convs[self.li].shape[2]
+        self.x = np.random.default_rng(100 + self.li).uniform(
+            -self.amp, self.amp, (raw, raw, cin))
+        return self._encrypt(self.x)
+
+    def layer_output(self, out, kind, pow_):
+        li, w = self.li, self.w
+        check(kind in ("Conv_sparse", "StrConv_sparse"), f"oracle: {kind}")
+        pre = convops.conv2d_same_np(self.x, w.convs[li]) * w.bn_a[li] + w.bn_b[li]
+        if kind == "StrConv_sparse":
+            ph = 0 if self.x.shape[0] % 2 == 1 else 1
+            self.block += 1
+            raw = self.runner.cfg.raw_in_wids[self.block]
+            pre = pre[ph::2, ph::2][:raw, :raw]
+        src = "the image" if self.amp is None else f"a seeded input, amp {self.amp}"
+        _layer_check(self.ctx, self.runner, out, pre,
+                     f"resnet layer {li} ({kind}) on {src}", self.block, pow_)
+        self.x = relu_np(pre)
+        self.li += 1
+
+    def head_input(self, ct):
+        if self.amp is None:
+            return ct
+        cfg = self.runner.cfg
+        raw, b3 = cfg.raw_in_wids[2], cfg.real_batch[2]
+        self.x = np.random.default_rng(99).uniform(-1, 1, (raw, raw, b3))
+        return encrypt_fc_input(self.ctx, cfg, self.x)
+
+    def head_output(self, logits):
+        if self.amp is None:
+            return   # resnet_path holds every image's logits
+        want = self.x.mean((0, 1)) @ self.w.fc_w + self.w.fc_b
+        err = float(np.abs(logits - want).max())
+        print(f"resnet FC head on a seeded input: max err {err:.2e} (bar 2e-3)")
+        check(err < 2e-3, f"resnet FC head: max err {err}")
+
+
+class LayerProbe:
+    """Stands in for ``models.resnet.eval_conv_bn_relu`` and the runner's
+    FC head while the runner drives an image: each layer starts and ends
+    in a synchronise, and its wall ms and the wrappers' launches are
+    kept; with ``profile`` each runs under ``torch.profiler``; with an
+    ``oracle`` (a ``LayerOracle``) each is held against the plain model."""
+
+    def __init__(self, dev, profile: bool = False, oracle=None):
+        self.dev = dev
+        self.profile = profile
+        self.oracle = oracle
+        self.rows: list = []
+
+    def run(self, what: str, fn):
+        out = []
+        torch.cuda.synchronize(self.dev)
+        before = [s.launches for s in STATS]
+        row = dict(what=what)
+        if self.profile:
+            row["ms"], row["device_ms"], row["groups"] = _profile_groups(
+                lambda: out.append(fn()), self.dev)
+        else:
+            t0 = time.perf_counter()
+            out.append(fn())
+            torch.cuda.synchronize(self.dev)
+            row["ms"] = (time.perf_counter() - t0) * 1e3
+        row["launches"] = {s.name: s.launches - b for s, b in zip(STATS, before)}
+        self.rows.append(row)
+        return out[0]
+
+    def layer(self, *args, **kw):
+        a = LAYER_ARGS.bind(*args, **kw)
+        kind = a.arguments["kind"]
+        if self.oracle:
+            a.arguments["ct_in"] = self.oracle.layer_input(a.arguments["ct_in"])
+        out = self.run(f"{kind} ls={a.arguments['log_sparse']}",
+                       lambda: eval_conv_bn_relu(*a.args, **a.kwargs))
+        if self.oracle:
+            self.oracle.layer_output(out, kind, a.arguments["pow_"])
+        return out
+
+    def head(self, head, ct, w):
+        if self.oracle:
+            ct = self.oracle.head_input(ct)
+        logits = self.run("FC head", lambda: head(ct, w))
+        if self.oracle:
+            self.oracle.head_output(logits)
+        return logits
+
+    def drive(self, runner, image, w, timings):
+        """runner.infer(image, w) with every layer and the head probed."""
+        head = runner._fc_head
+        resnet_mod.eval_conv_bn_relu = self.layer
+        runner._fc_head = lambda ct, w_: self.head(head, ct, w_)
+        try:
+            return runner.infer(image, w, timings)
+        finally:
+            resnet_mod.eval_conv_bn_relu = eval_conv_bn_relu
+            del runner._fc_head
+
+
+def resnet_path(dev, card):
+    """Phase 10: ResNet-20 CIFAR-10 wide 1 at logN 16 through the runner,
+    19 fused layers and the FC head, on 3 images, each encrypted argmax
+    against ``plain_forward``'s and its logits to 0.15; on image 0 every
+    layer decrypted and held to ``_layer_check``'s bars.  A fresh context:
+    the earlier paths' keys are gone.  After the launch counts are read,
+    every layer and the head once more on seeded inputs, then one warm
+    image under the profiler, layer by layer."""
+    p = boot_params(16)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ctx = CkksContext(p, dev, seed=3)
+    runner, w = block1_runner(ctx)
+    cfg = runner.cfg
+    print(f"resnet path: ResNet-20 CIFAR-10 wide {cfg.wide}, in_wids "
+          f"{cfg.in_wids}, real_batch {cfg.real_batch}, norm {runner.norm}, "
+          f"log_sparse {runner.log_sparse}, transitions at {runner.str_ls}, "
+          f"pow {cfg.init_pow}/{cfg.mid_pow}/{cfg.final_pow}; context "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(2)
+    images = [rng.uniform(-1, 1, (cfg.raw_in_wids[0],) * 2 + (3,))
+              for _ in range(3)]
+    for s in STATS:
+        s.reset()
+    agree = []
+    for i, image in enumerate(images):
+        # image 0: every layer decrypted and held against the plain model
+        probe = LayerProbe(dev, oracle=LayerOracle(ctx, runner, w, image)
+                           if i == 0 else None)
+        timings: dict = {}
+        t0 = time.perf_counter()
+        logits = probe.drive(runner, image, w, timings)
+        total = time.perf_counter() - t0
+        plain = plain_forward(w, image, cfg.depth, cfg.raw_in_wids)
+        check(logits.shape == plain.shape and np.isfinite(logits).all(),
+              f"resnet image {i}: bad logits")
+        top2 = np.sort(plain)[-2:]
+        agree.append(int(np.argmax(logits)) == int(np.argmax(plain)))
+        logit_err = np.abs(logits - plain).max()
+        for li, row in enumerate(probe.rows):
+            print(f"resnet image {i} #{li} {row['what']}: {row['ms']:.1f} ms, "
+                  f"launches "
+                  f"{json.dumps(row['launches'])}")
+        print(f"resnet image {i}, {card}: total {total * 1e3:.1f} ms; blocks ms "
+              + json.dumps({k: round(v * 1e3, 1) for k, v in timings.items()})
+              + f"; bootstrappers built in s "
+              + json.dumps({k: round(v, 2) for k, v in
+                            runner.btps.build_seconds.items()}))
+        print(f"resnet image {i}: argmax {int(np.argmax(logits))} vs plain "
+              f"{int(np.argmax(plain))} ({'agree' if agree[-1] else 'DIFFER'})"
+              f"; max |logit - plain| {logit_err:.4e} (bar 0.15, as the JAX "
+              f"package's ResNet-8 at logN 10); plain top-2 gap "
+              f"{top2[1] - top2[0]:.4e}")
+        print(precision_stats(plain, logits, distribution=True))
+        check(logit_err < 0.15, f"resnet image {i}: max |logit - plain| "
+              f"{logit_err}")
+        if i == 0:
+            memory_line(ctx, dev, runner.btps, "after the first image")
+    counts = _read_counts("resnet path", dev)
+    memory_line(ctx, dev, runner.btps, "after three images")
+    # random_weights' kernels (scale 0.5) shrink the image's share of the
+    # activations about threefold a layer, so after 19 layers the logits
+    # hardly depend on the image: the spread says how much the three
+    # argmax checks are one
+    plains = np.array([plain_forward(w, im, cfg.depth, cfg.raw_in_wids)
+                       for im in images])
+    print(f"resnet path: argmax equal on {sum(agree)} of {len(agree)} images; "
+          f"plain logits' spread across the images "
+          f"{np.ptp(plains, axis=0).max():.3e}")
+    check(all(agree), f"resnet path: argmax differs on "
+          f"{len(agree) - sum(agree)} of {len(agree)} images")
+
+    # the plain logits hardly depend on the image: hold every layer and
+    # the head once more, each on a seeded input that is not drowned
+    probe = LayerProbe(dev, oracle=LayerOracle(ctx, runner, w, images[0],
+                                               amp=16.0))
+    t0 = time.perf_counter()
+    probe.drive(runner, images[0], w, {})
+    print(f"resnet path, every layer and the head on seeded inputs: "
+          f"{time.perf_counter() - t0:.1f} s with the checks")
+
+    probe = LayerProbe(dev, profile=True)
+    t0 = time.perf_counter()
+    probe.drive(runner, images[0], w, {})
+    total = (time.perf_counter() - t0) * 1e3
+    groups: dict = {}
+    for li, row in enumerate(probe.rows):
+        print(f"resnet warm image under the profiler #{li} {row['what']}: "
+              f"wall {row['ms']:.1f} ms, device kernels "
+              f"{row['device_ms']:.3f} ms (busy "
+              f"{100 * row['device_ms'] / row['ms']:.1f}%): "
+              + json.dumps(row["groups"]))
+        for k, g in row["groups"].items():
+            acc = groups.setdefault(k, dict(launches=0, ms=0.0))
+            acc["launches"] += g["launches"]
+            acc["ms"] = round(acc["ms"] + g["ms"], 3)
+    wall = sum(r["ms"] for r in probe.rows)
+    busy = sum(r["device_ms"] for r in probe.rows)
+    print(f"resnet warm image under the profiler, {card}: {total:.1f} ms with "
+          f"the profiler's own work; layers + head wall {wall:.1f} ms, device "
+          f"kernels {busy:.3f} ms (busy {100 * busy / wall:.1f}%): "
+          + json.dumps(groups))
+    return counts
 
 
 def _read_counts(path: str, dev) -> dict:
@@ -1097,6 +1368,12 @@ def main() -> int:
     relu_times(ctx, dev, card)
     layer_times(ctx, dev, card, fam, held)
     memory_line(ctx, dev, fam, "at the end")
+
+    # the earlier context's keys would stay beside the runner's: switching
+    # keys live in a dict that only grows
+    del ctx, fam, held, a, b
+    torch.cuda.empty_cache()
+    paths["resnet path"] = resnet_path(dev, card)
 
     src = "optimal_conv_tpu_torch/csrc/"
     rows = [dict(name="mont_mul", route="cuda", source=src + "mont_mul.cu",

@@ -9,8 +9,9 @@ NVIDIA H100.  It follows the JAX package's layout and names:
            a plain PyTorch version that the CPU runs.
   ckks/    Parameters, encoder, keys, encryption and the evaluator ops
            the coefficient-packed convolution needs.
-  ops/     The packed convolution + BN layer.
-  models/  The ResNet-20 fully connected head.
+  ops/     The packed convolution + BN layer, the fused conv → bootstrap
+           → ReLU → repack layer and its per-stage decrypt oracles.
+  models/  The encrypted ResNet runner and its plaintext (numpy) model.
 
 It imports neither ``jax`` nor ``optimal_conv_tpu``.
 """

@@ -1,7 +1,8 @@
 """Command-line driver (counterpart of ``optimal_conv_tpu/cli.py``):
 
     python -m optimal_conv_tpu_torch conv     <ker 3|5|7> <i_batch 0..3> <n_tests> [--device cuda|cpu]
-    python -m optimal_conv_tpu_torch convReLU <ker 3|5|7> <i_batch 0..3> <n_tests> [--device cuda|cpu]
+    python -m optimal_conv_tpu_torch convReLU <ker 3|5|7> <i_batch 0..3> <n_tests> [--debug] [--device cuda|cpu]
+    python -m optimal_conv_tpu_torch resnet   <ker> <depth 8|14|20> <wide 1|2|3> <n_tests> [cf100] [--debug] [--device cuda|cpu]
 
 ``conv`` runs the paper's coefficient-packed conv + BN ("Ours") at
 logN=16 on the Go fork's exact chain (``boot_params(16)``, as the Go
@@ -12,12 +13,24 @@ the minimax ReLU, the keep-mask repack and the second half (StoC), kind
 ``Conv`` at log_sparse 0 with pow 4, as the Go binary's ``convReLU``
 does.  Inputs come from ``test_conv_data/`` CSVs when present, else from
 seed 0 in the same draw order as the JAX CLI; the numpy conv (and the
-exact ReLU) is the golden output.  The device defaults to CUDA and is
-never silently replaced by the CPU.
+exact ReLU) is the golden output.  ``--debug`` decrypts each stage of
+the layer and prints its precision against the plaintext mirror
+(``ops.debug.DebugOracle``).
 
-``resnet``, the prior-art baseline (``--bl``) and the per-stage decrypt
-oracles (``--debug``) are not ported yet and exit with an error that
-names what they wait for.
+``resnet`` runs the encrypted ResNet (``models.resnet.ResNetRunner``)
+at logN=16 on ``n_tests`` images: the weights of
+``Resnet_weights/weights[_cf100]_crop_ker{k}_d{d}_wid{w}/`` when that
+directory exists, else ``random_weights(seed=1)``; the images of
+``Resnet_plain_data/`` when present, else uniform in [-1, 1] from seed 2.
+Each image's encrypted and plaintext logits go to
+``Resnet_enc_results/`` as CSVs; it prints the block times, whether the
+argmax agrees and the precision of the logits.  ``--debug`` prints the
+packed input first.
+
+The device defaults to CUDA and is never silently replaced by the CPU.
+The crop_fast runners (``--fast``) and the prior-art baseline (``--bl``)
+are not ported yet and exit with an error that names what they wait
+for.
 """
 
 from __future__ import annotations
@@ -29,25 +42,19 @@ import time
 import numpy as np
 import torch
 
+from .ops.debug import precision_stats
+
 BATCHS = [4, 16, 64, 256]
-# what each unported command or option still waits for
+# what each unported option still waits for
 MISSING = {
-    "resnet": "the ResNetRunner (models/resnet.py) and the plaintext model "
-              "(models/plain.py)",
     "--bl": "the prior-art baseline (ops/baseline.py)",
-    "--debug": "the per-stage decrypt oracles (ops/debug.py)",
+    "--fast": "the crop_fast runners (FastResNetRunner and "
+              "WideFastResNetRunner in models/resnet.py)",
 }
 POW = 4.0            # convReLU: values enter the bootstrap divided by 2^POW
 WIDTHS = [128, 64, 32, 16]
-
-
-def precision_stats(want: np.ndarray, have: np.ndarray) -> str:
-    """log2-error stats (avg/min/max/median/quartiles)."""
-    err = np.abs(np.ravel(want) - np.ravel(have)) + 1e-300
-    lg = -np.log2(err)
-    q1, med, q3 = np.percentile(lg, (25, 50, 75))
-    return (f"prec (log2): avg {lg.mean():6.2f}  min {lg.min():6.2f}  "
-            f"max {lg.max():6.2f}  med {med:6.2f}  q1 {q1:6.2f}  q3 {q3:6.2f}")
+# real_batch of the ResNet by width (test.go:680-693)
+RESNET_BATCHES = {1: (16, 32, 64), 2: (32, 64, 128), 3: (48, 96, 192)}
 
 
 def conv_inputs(ker_wid: int, i_batch: int, it: int, rng: np.random.Generator,
@@ -114,7 +121,7 @@ def conv_relu_maps(params, ker_wid: int, i_batch: int):
 
 
 def encrypted_conv_relu(ctx, btps, maps, ker_wid: int, i_batch: int, raw, ker,
-                        bn_a, bn_b, on_stage=None):
+                        bn_a, bn_b, on_stage=None, debug_hook=None):
     """Encrypt `raw`, run the fused layer (kind ``Conv``, log_sparse 0,
     pow 4), decrypt: → (got, enc_s, layer_s)."""
     from .ops import conv as convops
@@ -131,11 +138,33 @@ def encrypted_conv_relu(ctx, btps, maps, ker_wid: int, i_batch: int, raw, ker,
     t1 = time.perf_counter()
     out = eval_conv_bn_relu(ctx, btps, ct, ker, bn_a, bn_b, 0.0, POW, in_wid,
                             raw_wid, ker_wid, in_batch, in_batch, 1, 0, 1, 2,
-                            0, "Conv", maps, on_stage=on_stage)
+                            0, "Conv", maps, debug_hook=debug_hook,
+                            on_stage=on_stage)
     _sync(ctx.device)
     t2 = time.perf_counter()
     got = convops.post_process(ctx.decrypt_decode_coeffs(out), raw_wid, in_wid)
     return got, t1 - t0, t2 - t1
+
+
+def conv_relu_oracle(ctx, maps, ker_wid: int, i_batch: int, raw, ker, bn_a,
+                     bn_b):
+    """The ``DebugOracle`` of one ``convReLU`` test: the expected conv + BN
+    output on the whole padded grid, channel-interleaved as the layer
+    packs it."""
+    from .ops import conv as convops
+    from .ops.debug import DebugOracle
+
+    p = ctx.params
+    in_batch, in_wid = BATCHS[i_batch], WIDTHS[i_batch]
+    raw_wid = in_wid - ker_wid // 2
+    full = np.zeros((in_wid, in_wid, in_batch))
+    full[:raw_wid, :raw_wid] = np.reshape(raw, (raw_wid, raw_wid, in_batch))
+    kk = np.reshape(ker, (ker_wid, ker_wid, in_batch, in_batch))
+    pc = convops.conv2d_same_np(full, kk) * bn_a + bn_b
+    cfs = np.zeros(p.n)
+    for b in range(in_batch):
+        cfs[b::in_batch] = pc[..., b].ravel()
+    return DebugOracle(ctx, in_wid, raw_wid, "Conv", POW, 0, cfs, maps=maps)
 
 
 def _sync(device: torch.device) -> None:
@@ -144,7 +173,7 @@ def _sync(device: torch.device) -> None:
 
 
 def run_conv(ker_wid: int, i_batch: int, n_tests: int, device,
-             boot: bool = False) -> None:
+             boot: bool = False, debug: bool = False) -> None:
     from .ckks.bootstrap import SplitBootstrapper
     from .ckks.context import CkksContext
     from .ckks.params import boot_params
@@ -166,15 +195,83 @@ def run_conv(ker_wid: int, i_batch: int, n_tests: int, device,
         raw, ker, bn_a, bn_b, want = conv_inputs(ker_wid, i_batch, it, rng,
                                                  relu=boot)
         if boot:
+            hook = (conv_relu_oracle(ctx, maps, ker_wid, i_batch, raw, ker,
+                                     bn_a, bn_b) if debug else None)
             got, enc_s, conv_s = encrypted_conv_relu(
-                ctx, btps, maps, ker_wid, i_batch, raw, ker, bn_a, bn_b)
+                ctx, btps, maps, ker_wid, i_batch, raw, ker, bn_a, bn_b,
+                debug_hook=hook)
         else:
             got, enc_s, conv_s = encrypted_conv(ctx, ker_wid, i_batch, raw,
                                                 ker, bn_a, bn_b)
         print(f"Encryption done in {enc_s:.3f}s")
         print(f"Conv{'+ReLU+boot' if boot else ' (with BN)'} done in "
               f"{conv_s:.3f}s")
-        print(precision_stats(want, got))
+        print(precision_stats(want, got, distribution=True))
+
+
+def run_resnet(ker_wid: int, depth: int, wide: int, n_tests: int,
+               cf100: bool, device, debug: bool = False) -> None:
+    from .ckks.context import CkksContext
+    from .ckks.params import boot_params
+    from .device import resolve_device
+    from .models.plain import load_weights_dir, plain_forward, random_weights
+    from .models.resnet import ResNetConfig, ResNetRunner
+    from .ops.debug import prt_mat
+
+    dev = resolve_device(device)
+    fc_out = 100 if cf100 else 10
+    cfg = ResNetConfig(ker_wid=ker_wid, depth=depth, cf100=cf100,
+                       real_batch=RESNET_BATCHES[wide], wide=wide,
+                       fc_out=fc_out)
+    params = boot_params(16)
+    print(f"CKKS parameters: logN={params.log_n} h={params.h} "
+          f"levels={len(params.logq)} scale=2^{params.log_scale} device={dev}")
+    ctx = CkksContext(params, dev, seed=0)
+    runner = ResNetRunner(ctx, cfg)
+    init_batch = cfg.init_batch if wide > 1 else None
+    # the Go reference's weight directory when present (test.go:92-100),
+    # else deterministic random weights
+    pfx = "weights_cf100_crop" if cf100 else "weights_crop"
+    weight_dir = f"Resnet_weights/{pfx}_ker{ker_wid}_d{depth}_wid{wide}"
+    if os.path.isdir(weight_dir):
+        print(f"loading weights from {weight_dir}")
+        w = load_weights_dir(weight_dir, ker_wid, depth, cfg.real_batch,
+                             fc_out=fc_out, init_batch=init_batch)
+    else:
+        w = random_weights(ker_wid, depth, cfg.real_batch, fc_out=fc_out,
+                           seed=1, init_batch=init_batch)
+    rng = np.random.default_rng(2)
+    out_dir = (f"Resnet_enc_results/results_crop_ker{ker_wid}_d{depth}"
+               f"_wid{wide}")
+    os.makedirs(out_dir, exist_ok=True)
+    raw0, w0 = cfg.raw_in_wids[0], cfg.in_wids[0]
+    pfx_d = "cf100_crop" if cf100 else "crop"
+    for it in range(n_tests):
+        img_file = (f"Resnet_plain_data/{pfx_d}_ker{ker_wid}_d{depth}"
+                    f"_wid{wide}/test_image_{it}.csv")
+        if os.path.exists(img_file):
+            # the image CSVs hold the whole in_wid² grid, of which only the
+            # raw_in_wid² top-left corner is meaningful (test.go:129-148)
+            image = np.loadtxt(img_file).reshape(w0, w0, 3)[:raw0, :raw0]
+        else:
+            image = rng.uniform(-1, 1, (raw0, raw0, 3))
+        if debug:
+            # packed-input matrix view (test.go:151)
+            prt_mat(runner.packed_image(image), runner.max_batch[0], show=3,
+                    norm=runner.norm[0])
+        timings: dict = {}
+        t0 = time.perf_counter()
+        logits = runner.infer(image, w, timings)
+        _sync(dev)
+        total = time.perf_counter() - t0
+        plain = plain_forward(w, image, depth, cfg.raw_in_wids)
+        np.savetxt(f"{out_dir}/class_result_ker{ker_wid}_{it}.csv", logits)
+        np.savetxt(f"{out_dir}/plain_result_ker{ker_wid}_{it}.csv", plain)
+        agree = int(np.argmax(logits) == np.argmax(plain))
+        for k, v in timings.items():
+            print(f"  {k}: {v:.1f}s")
+        print(f"sample {it}: total {total:.1f}s, argmax agree={agree}")
+        print(precision_stats(plain, logits, distribution=True))
 
 
 def main(argv=None) -> int:
@@ -184,14 +281,24 @@ def main(argv=None) -> int:
         k = argv.index("--device")
         device = argv[k + 1]
         del argv[k: k + 2]
+    for what, waits in MISSING.items():
+        if what in argv:
+            raise SystemExit(f"{what}: not ported yet; {waits} still missing")
+    debug = "--debug" in argv
+    argv = [a for a in argv if a != "--debug"]
     if not argv:
         print(__doc__)
         return 1
     cmd = argv[0]
-    for what in (cmd, "--bl", "--debug"):
-        if what in MISSING and what in argv:
-            raise SystemExit(f"{what}: not ported yet; conv and convReLU run, "
-                             f"{MISSING[what]} still missing")
+    if cmd == "resnet":
+        ker, depth, wide, n = (int(x) for x in argv[1:5])
+        cf100 = argv[5].lower() in ("true", "1") if len(argv) > 5 else False
+        if depth not in (8, 14, 20):
+            raise SystemExit("depth must be 8, 14 or 20")
+        if wide not in RESNET_BATCHES:
+            raise SystemExit("wide must be 1, 2 or 3")
+        run_resnet(ker, depth, wide, n, cf100, device, debug=debug)
+        return 0
     if cmd not in ("conv", "convReLU"):
         raise SystemExit(f"unknown command {cmd}")
     ker, ib, n = int(argv[1]), int(argv[2]), int(argv[3])
@@ -199,5 +306,5 @@ def main(argv=None) -> int:
         raise SystemExit("kernel width must be 3, 5 or 7")
     if n > 10 or not 0 <= ib <= 3:
         raise SystemExit("too many tests (>10) or batch index (>3)")
-    run_conv(ker, ib, n, device, boot=cmd == "convReLU")
+    run_conv(ker, ib, n, device, boot=cmd == "convReLU", debug=debug)
     return 0

@@ -6,7 +6,8 @@ logN 10 on ``mini_boot_params(10, n_relu=14)`` with the geometry of
 JAX on the JAX context's keys, with equal level and scale, and meets the
 JAX test's bars against numpy conv + exact ReLU.  The JAX side of this one
 case takes minutes, so it has a file, and with it a test worker, of its
-own; the helpers are ``tests/test_torch_pipeline.py``'s.
+own; the helpers are ``tests/test_torch_pipeline.py``'s.  A second port
+layer on the same bootstrapper runs under the port's ``DebugOracle``.
 """
 
 import numpy as np
@@ -18,10 +19,14 @@ from optimal_conv_tpu.ops import pipeline as jpipe
 from optimal_conv_tpu_torch.ckks.bootstrap import SplitBootstrapper
 from optimal_conv_tpu_torch.ops import conv as convops
 from optimal_conv_tpu_torch.ops import pipeline as tpipe
+from optimal_conv_tpu_torch.ops.debug import DebugOracle
 from optimal_conv_tpu_torch.ops import repack as rp
 from optimal_conv_tpu_torch.ops.relu import relu_np
 
 from .test_torch_pipeline import BOOT, IN_WID, KER, MB, POW, Pair, _same
+
+
+LS = 2
 
 
 @pytest.fixture(scope="module")
@@ -29,10 +34,17 @@ def pair():
     return Pair()
 
 
-def test_conv_bn_relu_sparse_bit_exact_and_bars(pair, monkeypatch):
+@pytest.fixture(scope="module")
+def tbt(pair):
+    """The port's bootstrapper at log_sparse 2, double-hoisted as JAX's."""
+    return {LS: SplitBootstrapper(pair.t, log_sparse=LS, double_hoist=True,
+                                  **BOOT)}
+
+
+def test_conv_bn_relu_sparse_bit_exact_and_bars(pair, tbt, monkeypatch):
     """One ResNet block-1 style layer: Conv_sparse at log_sparse 2."""
     raw = IN_WID - KER // 2
-    norm, ls = 4, 2
+    norm, ls = 4, LS
     ib = ob = MB // norm
     img = pair.rng.uniform(-0.8, 0.8, (raw, raw, ib))
     ker = pair.rng.uniform(-1, 1, (KER, KER, ib, ob)) / 4.0
@@ -45,8 +57,6 @@ def test_conv_bn_relu_sparse_bit_exact_and_bars(pair, monkeypatch):
             0, 1, 2, ls, "Conv_sparse")
     monkeypatch.setenv("OPTCONV_DOUBLE_HOIST", "1")
     jbt = {ls: JaxBoot(pair.j, log_sparse=ls, **BOOT)}
-    tbt = {ls: SplitBootstrapper(pair.t, log_sparse=ls, double_hoist=True,
-                                 **BOOT)}
     jout = jpipe.eval_conv_bn_relu(pair.j, jbt, jct, *args,
                                    jpipe.LayerMaps(ext_idx=[mask, None]))
     seen = []
@@ -63,3 +73,40 @@ def test_conv_bn_relu_sparse_bit_exact_and_bars(pair, monkeypatch):
     err = np.abs(got - want)
     assert err.max() < 5e-2, f"max err {err.max()}"
     assert np.mean(err < 2.5e-2) > 0.97
+
+
+def test_debug_oracle_on_a_port_layer(pair, tbt):
+    """One Conv_sparse layer at log_sparse 2 with the port's DebugOracle as
+    its debug hook: every stage is decrypted and has a golden, each above
+    the 4 bits of tests/test_debug_oracle.py."""
+    raw = IN_WID - KER // 2
+    norm = 4
+    ib = ob = MB // norm
+    n = pair.n
+    img = pair.rng.uniform(-0.8, 0.8, (raw, raw, ib))
+    ker = pair.rng.uniform(-1, 1, (KER, KER, ib, ob)) / 4.0
+    bn_a = pair.rng.uniform(0.8, 1.2, ob)
+    bn_b = pair.rng.uniform(-0.2, 0.2, ob)
+    ct = pair.t.encrypt(pair.t.encoder.encode_coeffs(
+        convops.prep_input(img.ravel(), raw, IN_WID, n, norm),
+        pair.t.params.scale, 1))
+    # the expected conv + BN on the whole padded grid, channels at stride
+    # norm of each position's MB slots
+    full = np.zeros((IN_WID, IN_WID, ib))
+    full[:raw, :raw] = img
+    conv = convops.conv2d_same_np(full, ker) * bn_a + bn_b
+    cfs = np.zeros(n)
+    for b in range(ob):
+        cfs[b * norm::MB] = conv[..., b].ravel()
+    maps = tpipe.LayerMaps(ext_idx=[rp.gen_keep_vec_sparse(n // 2, IN_WID,
+                                                           raw, LS), None])
+    oracle = DebugOracle(pair.t, IN_WID, raw, "Conv_sparse", POW, LS, cfs,
+                         maps=maps)
+    tpipe.eval_conv_bn_relu(pair.t, tbt, ct, ker.ravel(), bn_a, bn_b, 0.0, POW,
+                            IN_WID, raw, KER, ib, ob, norm, 0, 1, 2, LS,
+                            "Conv_sparse", maps, debug_hook=oracle)
+    assert [s for s, _ in oracle.history] == ["conv", "ctos[0]", "relu[0]",
+                                              "repack[0]", "stoc"]
+    for stage, avg in oracle.history:
+        assert avg is not None, f"stage {stage} had no golden"
+        assert avg > 4.0, f"stage {stage} precision {avg} bits"

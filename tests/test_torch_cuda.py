@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from optimal_conv_tpu_torch.ckks.context import CkksContext, SwitchingKey
-from optimal_conv_tpu_torch.ckks.params import boot_params
+from optimal_conv_tpu_torch.ckks.params import boot_params, mini_boot_params
 from optimal_conv_tpu_torch.core import modmath as mm
 from optimal_conv_tpu_torch.core import mont_kernel, ntt_kernel
 from optimal_conv_tpu_torch.core.ntt import NttContext, _ntt_fwd, _ntt_inv
@@ -318,3 +318,59 @@ def test_bootstrap_on_card_equals_cpu(dev, contexts):
     _same_ct(got, want)
     assert got.level == 1
     np.testing.assert_allclose(card.decrypt_decode_coeffs(got), v, atol=3e-2)
+
+
+class _TwoLayers(Exception):
+    pass
+
+
+def _first_two_layers(ctx, monkeypatch):
+    """The ResNet-8 mini of tests/test_resnet_mini.py through the runner,
+    stopped after its first two fused layers: → their output ciphertexts."""
+    from optimal_conv_tpu_torch.models import resnet as res
+    from optimal_conv_tpu_torch.models.plain import random_weights
+
+    cfg = res.ResNetConfig(ker_wid=3, depth=8, in_wids=(16, 8, 4),
+                           real_batch=(1, 2, 4), fc_out=4, init_pow=4.0,
+                           mid_pow=4.0, final_pow=4.0)
+    runner = res.ResNetRunner(ctx, cfg, dict(k_range=12.0, sin_deg=31,
+                                             double_angle=3))
+    w = random_weights(3, 8, cfg.real_batch, fc_out=4, in_ch=1, seed=4,
+                       scale=0.7)
+    image = np.random.default_rng(6).uniform(-1, 1, (15, 15, 1))
+    outs = []
+    layer = res.eval_conv_bn_relu
+
+    def two(*args, **kw):
+        if len(outs) == 2:
+            raise _TwoLayers
+        outs.append(layer(*args, **kw))
+        return outs[-1]
+
+    monkeypatch.setattr(res, "eval_conv_bn_relu", two)
+    with pytest.raises(_TwoLayers):
+        runner.infer(image, w)
+    monkeypatch.setattr(res, "eval_conv_bn_relu", layer)
+    return outs
+
+
+def test_runner_layers_on_card_equal_cpu(dev, monkeypatch):
+    """The runner's first two layers (Conv_sparse at log_sparse 2: conv,
+    ctos, ReLU, repack, stoc) at logN 10 on the card equal the CPU's bit
+    for bit, on the CPU context's keys.  The same seed gives both contexts
+    the same secret key and the same encrypted image."""
+    p = mini_boot_params(10, n_relu=14)
+    cpu = CkksContext(p, "cpu", seed=19)
+    card = CkksContext(p, dev, seed=19)
+    want = _first_two_layers(cpu, monkeypatch)
+    _share_keys(cpu, card)
+    held = len(card.switching_keys)
+    stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV)
+    before = [(s.launches, s.plain_calls) for s in stats]
+    got = _first_two_layers(card, monkeypatch)
+    for s, (launches, plain) in zip(stats, before):
+        assert s.launches > launches and s.plain_calls == plain
+    assert len(card.switching_keys) == held, "the card made a key"
+    for g, w_ in zip(got, want):
+        _same_ct(g, w_)
+    assert [c.level for c in got] == [1, 1]

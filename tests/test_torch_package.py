@@ -85,21 +85,23 @@ def test_no_module_of_the_port_names_jax_or_reads_the_environment():
         assert "environ" not in src and "getenv" not in src, rel
 
 
-@pytest.mark.parametrize("name", ["ckks.dft", "ops.repack"])
+@pytest.mark.parametrize("name", ["ckks.dft", "ops.repack", "models.plain"])
 def test_copied_numpy_module_equals_its_original(name):
-    """``ckks/dft.py`` and ``ops/repack.py`` are copies of the JAX
-    package's numpy-only modules: the same functions with the same source,
-    but for the paths of the Go sources in comments and docstrings."""
+    """``ckks/dft.py``, ``ops/repack.py`` and ``models/plain.py`` are copies
+    of the JAX package's numpy-only modules: the same functions and classes
+    with the same source, but for the paths of the Go sources in comments
+    and docstrings."""
     import importlib
 
     ours = importlib.import_module(f"optimal_conv_tpu_torch.{name}")
     theirs = importlib.import_module(f"optimal_conv_tpu.{name}")
 
     def functions(mod):
-        """{name: function}, the cached ones by what they wrap."""
+        """{name: function or class}, the cached ones by what they wrap."""
         fns = {k: getattr(v, "__wrapped__", v) for k, v in vars(mod).items()}
         return {k: f for k, f in fns.items()
-                if inspect.isfunction(f) and f.__module__ == mod.__name__}
+                if (inspect.isfunction(f) or inspect.isclass(f))
+                and f.__module__ == mod.__name__}
 
     a, b = functions(ours), functions(theirs)
     assert sorted(a) == sorted(b) and len(a) >= 7
@@ -143,13 +145,16 @@ def test_cli_conv_on_cpu(capsys):
     assert "logN=16" in out and "Conv (with BN) done" in out
     avg = float(out.split("prec (log2): avg")[1].split()[0])
     assert avg > 24.0, out
-    for argv, names in ((["convReLU", "3", "0", "1", "--debug"], "ops/debug.py"),
-                        (["resnet", "3", "20", "1", "1"], "models/plain.py"),
+    assert " bits: " in out                 # the cumulative distribution
+    for argv, names in ((["resnet", "3", "20", "1", "1", "--fast"],
+                         "FastResNetRunner"),
                         (["conv", "3", "0", "1", "--bl"], "ops/baseline.py")):
         with pytest.raises(SystemExit, match="not ported yet") as stop:
             cli.main(argv + ["--device", "cpu"])
         assert names in str(stop.value)
-    assert "bootstrap" not in " ".join(cli.MISSING.values())
+    missing = " ".join(cli.MISSING.values())
+    assert "bootstrap" not in missing and "debug" not in missing
+    assert "resnet" not in cli.MISSING and "--debug" not in cli.MISSING
 
 
 def test_cli_conv_relu_needs_its_device(monkeypatch):
