@@ -205,6 +205,28 @@ def boot_params(log_n: int = 16) -> CkksParams:
                       q_explicit=q, p_explicit=p)
 
 
+def bl_boot_params(log_n: int = 16) -> CkksParams:
+    """The Go fork's DefaultBootstrapParams[7], the chain its prior-art
+    baseline bootstraps on: 28 Q-limbs + 5 P-limbs, logQP 1582, scale
+    2^30, h = 192.  Above level 15 it is ``boot_params``' chain; below,
+    the ReLU's eleven 30-bit primes sit under the StoC primes, so a whole
+    bootstrap (StoC right under EvalMod) is followed by the ReLU:
+        0-1    2^55, 2^60  residual
+        2-12   2^30 ×11    minimax ReLU
+        13-15  2^60 ×3     StoC (3 DFT groups, one a level)
+        16-23  2^55 ×8     EvalMod
+        24-27  2^53 ×4     CtoS
+    """
+    q, p = ref_fork_chain(7)
+    logq = tuple(round(np.log2(m)) for m in q)
+    logp = tuple(round(np.log2(m)) for m in p)
+    layout = {"stoc": (13, 16), "relu": (2, 13), "evalmod": (16, 24),
+              "ctos": (24, 28), "stoc_groups": 3}
+    return CkksParams(log_n=log_n, logq=logq, logp=logp,
+                      log_scale=30, h=192, sigma=3.2, boot_layout=layout,
+                      q_explicit=q, p_explicit=p)
+
+
 def _boot_layout(n_stoc: int, n_relu: int, n_mod: int, n_ctos: int) -> dict:
     """Stage → level (or half-open level range) of a bootstrappable chain."""
     relu = 3 + n_stoc

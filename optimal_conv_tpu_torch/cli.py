@@ -1,12 +1,23 @@
 """Command-line driver (counterpart of ``optimal_conv_tpu/cli.py``):
 
-    python -m optimal_conv_tpu_torch conv     <ker 3|5|7> <i_batch 0..3> <n_tests> [--device cuda|cpu]
-    python -m optimal_conv_tpu_torch convReLU <ker 3|5|7> <i_batch 0..3> <n_tests> [--debug] [--device cuda|cpu]
-    python -m optimal_conv_tpu_torch resnet   <ker> <depth 8|14|20> <wide 1|2|3> <n_tests> [cf100] [--debug] [--device cuda|cpu]
+    python -m optimal_conv_tpu_torch conv     <ker 3|5|7> <i_batch 0..3> <n_tests> [--no-bl] [--device cuda|cpu]
+    python -m optimal_conv_tpu_torch convReLU <ker 3|5|7> <i_batch 0..3> <n_tests> [--no-bl] [--debug] [--device cuda|cpu]
+    python -m optimal_conv_tpu_torch resnet   <ker> <depth 8|14|20> <wide 1|2|3> <n_tests> [cf100] [--fast] [--debug] [--device cuda|cpu]
 
-``conv`` runs the paper's coefficient-packed conv + BN ("Ours") at
-logN=16 on the Go fork's exact chain (``boot_params(16)``, as the Go
-binary's ``conv`` does), for the batch/width pairs {4,16,64,256} ×
+``conv`` and ``convReLU`` first run the prior-art baseline ("Base Line
+start.", ``ops.baseline``: the slot-packed SISO conv over two
+ciphertexts) and then the paper's method ("Ours start.") on the same
+data, as the Go binary does; ``--no-bl`` skips the baseline.  The
+baseline's ``conv`` runs on a chain of its own (logN 16, logQ 60 + 30,
+logP 61 + 61, scale 2^30; ``bl_params`` says why not the JAX CLI's);
+its ``convReLU`` runs on the Go fork's baseline chain
+(``bl_boot_params(16)``): the conv at its top ReLU level, then the two
+output ciphertexts packed into one as re + i·im, one bootstrap (StoC
+just under EvalMod), the unpacking and the minimax ReLU on each.
+
+The paper's ``conv`` runs the coefficient-packed conv + BN at logN=16 on
+the Go fork's exact chain (``boot_params(16)``, as the Go binary's
+``conv`` does), for the batch/width pairs {4,16,64,256} ×
 {128,64,32,16}.  ``convReLU`` runs the whole fused layer on the same
 data: conv + BN, the first bootstrap half (ModRaise, CtoS, EvalMod),
 the minimax ReLU, the keep-mask repack and the second half (StoC), kind
@@ -14,23 +25,23 @@ the minimax ReLU, the keep-mask repack and the second half (StoC), kind
 does.  Inputs come from ``test_conv_data/`` CSVs when present, else from
 seed 0 in the same draw order as the JAX CLI; the numpy conv (and the
 exact ReLU) is the golden output.  ``--debug`` decrypts each stage of
-the layer and prints its precision against the plaintext mirror
+the paper's layer and prints its precision against the plaintext mirror
 (``ops.debug.DebugOracle``).
 
-``resnet`` runs the encrypted ResNet (``models.resnet.ResNetRunner``)
-at logN=16 on ``n_tests`` images: the weights of
+``resnet`` runs the encrypted ResNet at logN=16 on ``n_tests`` images:
+``models.resnet.ResNetRunner`` (sparse packing), or with ``--fast`` the
+crop_fast runners, ``FastResNetRunner`` for wide 1 and
+``WideFastResNetRunner`` for wide 2 and 3.  The weights are those of
 ``Resnet_weights/weights[_cf100]_crop_ker{k}_d{d}_wid{w}/`` when that
-directory exists, else ``random_weights(seed=1)``; the images of
+directory exists, else ``random_weights(seed=1)``; the images those of
 ``Resnet_plain_data/`` when present, else uniform in [-1, 1] from seed 2.
 Each image's encrypted and plaintext logits go to
-``Resnet_enc_results/`` as CSVs; it prints the block times, whether the
-argmax agrees and the precision of the logits.  ``--debug`` prints the
-packed input first.
+``Resnet_enc_results/`` as CSVs, which
+``python -m optimal_conv_tpu_torch.compare`` scores; it prints the block
+times, whether the argmax agrees and the precision of the logits.
+``--debug`` prints the packed input first.
 
 The device defaults to CUDA and is never silently replaced by the CPU.
-The crop_fast runners (``--fast``) and the prior-art baseline (``--bl``)
-are not ported yet and exit with an error that names what they wait
-for.
 """
 
 from __future__ import annotations
@@ -45,12 +56,6 @@ import torch
 from .ops.debug import precision_stats
 
 BATCHS = [4, 16, 64, 256]
-# what each unported option still waits for
-MISSING = {
-    "--bl": "the prior-art baseline (ops/baseline.py)",
-    "--fast": "the crop_fast runners (FastResNetRunner and "
-              "WideFastResNetRunner in models/resnet.py)",
-}
 POW = 4.0            # convReLU: values enter the bootstrap divided by 2^POW
 WIDTHS = [128, 64, 32, 16]
 # real_batch of the ResNet by width (test.go:680-693)
@@ -167,6 +172,110 @@ def conv_relu_oracle(ctx, maps, ker_wid: int, i_batch: int, raw, ker, bn_a,
     return DebugOracle(ctx, in_wid, raw_wid, "Conv", POW, 0, cfs, maps=maps)
 
 
+# The baseline's convReLU bootstraps 2(z1 + i·z2) undivided and divides
+# after the bootstrap, as the Go binary does: the bootstrap's error is
+# absolute, so this is more precise than the JAX package's pow + 2.  It
+# needs the payload's coefficients inside EvalMod's range, which the data
+# of every geometry here keeps (utils/bl_range.py measures both; PERF.md).
+BL_SHIFT = 0.0
+
+
+def bl_params(boot: bool):
+    """The baseline's chain.  ``convReLU``: the Go fork's own baseline
+    chain, DefaultBootstrapParams[7] (``bl_boot_params``), whose StoC
+    primes are 60-bit and whose ReLU primes lie below them.  ``conv``: a
+    chain of its own, whose second prime is near the scale 2^30 and whose
+    two special primes outweigh a digit.  (The JAX CLI's, logQ 60 + 45
+    with one 61-bit special prime and the paper's chain for ``convReLU``,
+    lose precision: after the conv's rescale the scale is 2^15, key
+    switches add 1e-5 a slot and 1e-2 at slot 0, and on the paper's chain
+    the StoC groups and the ReLU fall on 30- and 42-bit primes.)"""
+    from .ckks.params import CkksParams, bl_boot_params
+
+    if boot:
+        return bl_boot_params(16)
+    return CkksParams(log_n=16, logq=(60, 30), logp=(61, 61), log_scale=30,
+                      h=192)
+
+
+def bl_level(params) -> int:
+    """The level the baseline encrypts at, one whose prime is near the
+    scale, so the rescale after the tap products keeps it: level 1 of the
+    conv's chain, or the top ReLU level of the bootstrapping one, which
+    also leaves a level for the fold's set_scale before the bootstrap.
+    (After the bootstrap, the set_scale that divides by 2^(pow+2-shift)
+    and the ReLU take the refreshed ciphertexts from that level to 0.)"""
+    if params.boot_layout is None:
+        return 1
+    return params.boot_layout["relu"][1] - 1
+
+
+def bl_bootstrapper(ctx):
+    """The baseline's bootstrapper: log_sparse 0 with StoC just under
+    EvalMod, so the refreshed ciphertext keeps the ReLU's depth."""
+    from .ckks.bootstrap import SplitBootstrapper
+
+    stoc_top = ctx.params.boot_layout["evalmod"][0] - 1
+    return SplitBootstrapper(ctx, log_sparse=0, stoc_level=stoc_top)
+
+
+def bl_slots(ker_wid: int, i_batch: int, raw) -> list:
+    """The baseline's two slot vectors: channels [0, B/2) and the rest,
+    each channel a block of the padded grid (test_BL.go:59-76)."""
+    from .ops import baseline as bl
+
+    in_batch, in_wid = BATCHS[i_batch], WIDTHS[i_batch]
+    raw_wid = in_wid - ker_wid // 2
+    hb = in_batch // 2
+    img3 = np.reshape(raw, (raw_wid, raw_wid, in_batch))
+    pads = []
+    for half in range(2):
+        p_in = np.zeros(in_wid * in_wid * hb)
+        for b in range(hb):
+            blk = np.zeros((in_wid, in_wid))
+            blk[:raw_wid, :raw_wid] = img3[..., half * hb + b]
+            p_in[b::hb] = blk.ravel()
+        pads.append(bl.reshape_input_bl(p_in, in_wid))
+    return pads
+
+
+def encrypted_conv_bl(ctx, btp, ker_wid: int, i_batch: int, raw, ker, bn_a,
+                      bn_b):
+    """Encrypt `raw` as two slot ciphertexts, run the baseline conv + BN
+    (and with a bootstrapper `btp` the packed bootstrap and the ReLU),
+    decrypt: → (got, {stage: seconds})."""
+    from .ops import baseline as bl
+
+    p = ctx.params
+    in_batch, in_wid = BATCHS[i_batch], WIDTHS[i_batch]
+    pad = ker_wid // 2
+    raw_wid = in_wid - pad
+    level = bl_level(p)
+    secs = {}
+    t0 = time.perf_counter()
+    cts = [ctx.encrypt(ctx.encoder.encode_slots(v, p.scale, level))
+           for v in bl_slots(ker_wid, i_batch, raw)]
+    _sync(ctx.device)
+    secs["encryption"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = bl.conv_bl_split(ctx, cts[0], cts[1], ker, bn_a, bn_b, in_wid,
+                           ker_wid, in_batch, pad)
+    res = [ctx.rescale(ct) for ct in res]
+    _sync(ctx.device)
+    secs["evaluation"] = time.perf_counter() - t0
+    if btp is not None:
+        t0 = time.perf_counter()
+        res = list(bl.eval_conv_bl_boot_relu(ctx, btp, res[0], res[1], 0.0,
+                                             POW, shift=BL_SHIFT))
+        _sync(ctx.device)
+        secs["boot + relu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vals = [ctx.decrypt_decode_slots(ct) for ct in res]
+    secs["decryption"] = time.perf_counter() - t0
+    got = np.concatenate([bl.post_trim_bl(v, raw_wid, in_wid) for v in vals])
+    return bl.post_process_bl(got, raw_wid), secs
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -209,13 +318,45 @@ def run_conv(ker_wid: int, i_batch: int, n_tests: int, device,
         print(precision_stats(want, got, distribution=True))
 
 
+def run_conv_bl(ker_wid: int, i_batch: int, n_tests: int, device,
+                boot: bool = False) -> None:
+    """The prior-art baseline on the data ``run_conv`` then takes
+    (main.go:639-643 → test_BL.go:16-185)."""
+    from .ckks.context import CkksContext
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    params = bl_params(boot)
+    print(f"CKKS parameters: logN={params.log_n} logSlots={params.log_slots} "
+          f"h={params.h} logQP~{sum(params.logq) + sum(params.logp)} "
+          f"levels={len(params.logq)} scale=2^{params.log_scale} device={dev}")
+    ctx = CkksContext(params, dev, seed=0)
+    btp = bl_bootstrapper(ctx) if boot else None
+    rng = np.random.default_rng(0)
+    for it in range(n_tests):
+        print(f"{it + 1}-th iter... start")
+        raw, ker, bn_a, bn_b, want = conv_inputs(ker_wid, i_batch, it, rng,
+                                                 relu=boot)
+        got, secs = encrypted_conv_bl(ctx, btp, ker_wid, i_batch, raw, ker,
+                                      bn_a, bn_b)
+        print(f"Encryption done in {secs['encryption']:.3f}s")
+        print(f"Evaluation total done in {secs['evaluation']:.3f}s")
+        if boot:
+            print(f"Boot (imaginary pack) + ReLU done in "
+                  f"{secs['boot + relu']:.3f}s")
+        print(f"Decryption done in {secs['decryption']:.3f}s")
+        print(precision_stats(want, got, distribution=True))
+
+
 def run_resnet(ker_wid: int, depth: int, wide: int, n_tests: int,
-               cf100: bool, device, debug: bool = False) -> None:
+               cf100: bool, device, debug: bool = False,
+               fast: bool = False) -> None:
     from .ckks.context import CkksContext
     from .ckks.params import boot_params
     from .device import resolve_device
     from .models.plain import load_weights_dir, plain_forward, random_weights
-    from .models.resnet import ResNetConfig, ResNetRunner
+    from .models.resnet import (FastResNetRunner, ResNetConfig, ResNetRunner,
+                                WideFastResNetRunner)
     from .ops.debug import prt_mat
 
     dev = resolve_device(device)
@@ -227,7 +368,13 @@ def run_resnet(ker_wid: int, depth: int, wide: int, n_tests: int,
     print(f"CKKS parameters: logN={params.log_n} h={params.h} "
           f"levels={len(params.logq)} scale=2^{params.log_scale} device={dev}")
     ctx = CkksContext(params, dev, seed=0)
-    runner = ResNetRunner(ctx, cfg)
+    if fast:
+        # wide 1 → testResNet_crop_fast_in (test.go:372); wide 2/3 →
+        # testResNet_crop_fast_wide_in (test.go:914, main.go:264-345)
+        runner = (FastResNetRunner(ctx, cfg) if wide == 1
+                  else WideFastResNetRunner(ctx, cfg))
+    else:
+        runner = ResNetRunner(ctx, cfg)
     init_batch = cfg.init_batch if wide > 1 else None
     # the Go reference's weight directory when present (test.go:92-100),
     # else deterministic random weights
@@ -257,8 +404,8 @@ def run_resnet(ker_wid: int, depth: int, wide: int, n_tests: int,
             image = rng.uniform(-1, 1, (raw0, raw0, 3))
         if debug:
             # packed-input matrix view (test.go:151)
-            prt_mat(runner.packed_image(image), runner.max_batch[0], show=3,
-                    norm=runner.norm[0])
+            _, mb, _, norm = runner.layout(0)
+            prt_mat(runner.packed_image(image), mb, show=3, norm=norm)
         timings: dict = {}
         t0 = time.perf_counter()
         logits = runner.infer(image, w, timings)
@@ -281,11 +428,10 @@ def main(argv=None) -> int:
         k = argv.index("--device")
         device = argv[k + 1]
         del argv[k: k + 2]
-    for what, waits in MISSING.items():
-        if what in argv:
-            raise SystemExit(f"{what}: not ported yet; {waits} still missing")
     debug = "--debug" in argv
-    argv = [a for a in argv if a != "--debug"]
+    fast = "--fast" in argv
+    skip_bl = "--no-bl" in argv
+    argv = [a for a in argv if a not in ("--debug", "--fast", "--no-bl")]
     if not argv:
         print(__doc__)
         return 1
@@ -297,7 +443,7 @@ def main(argv=None) -> int:
             raise SystemExit("depth must be 8, 14 or 20")
         if wide not in RESNET_BATCHES:
             raise SystemExit("wide must be 1, 2 or 3")
-        run_resnet(ker, depth, wide, n, cf100, device, debug=debug)
+        run_resnet(ker, depth, wide, n, cf100, device, debug=debug, fast=fast)
         return 0
     if cmd not in ("conv", "convReLU"):
         raise SystemExit(f"unknown command {cmd}")
@@ -306,5 +452,12 @@ def main(argv=None) -> int:
         raise SystemExit("kernel width must be 3, 5 or 7")
     if n > 10 or not 0 <= ib <= 3:
         raise SystemExit("too many tests (>10) or batch index (>3)")
-    run_conv(ker, ib, n, device, boot=cmd == "convReLU", debug=debug)
+    boot = cmd == "convReLU"
+    # the prior art, then the paper's method, on the same data
+    # (main.go:639-643)
+    if not skip_bl:
+        print("Base Line start.")
+        run_conv_bl(ker, ib, n, device, boot=boot)
+    print("Ours start.")
+    run_conv(ker, ib, n, device, boot=boot, debug=debug)
     return 0

@@ -324,17 +324,19 @@ class _TwoLayers(Exception):
     pass
 
 
-def _first_two_layers(ctx, monkeypatch):
-    """The ResNet-8 mini of tests/test_resnet_mini.py through the runner,
-    stopped after its first two fused layers: → their output ciphertexts."""
+def _first_two_layers(ctx, monkeypatch, runner_cls="ResNetRunner"):
+    """The ResNet-8 mini of tests/test_resnet_mini.py (or, for
+    ``FastResNetRunner``, of tests/test_resnet_fast_mini.py) through the
+    runner, stopped after its first two fused layers: → their output
+    ciphertexts."""
     from optimal_conv_tpu_torch.models import resnet as res
     from optimal_conv_tpu_torch.models.plain import random_weights
 
     cfg = res.ResNetConfig(ker_wid=3, depth=8, in_wids=(16, 8, 4),
                            real_batch=(1, 2, 4), fc_out=4, init_pow=4.0,
                            mid_pow=4.0, final_pow=4.0)
-    runner = res.ResNetRunner(ctx, cfg, dict(k_range=12.0, sin_deg=31,
-                                             double_angle=3))
+    runner = getattr(res, runner_cls)(ctx, cfg, dict(k_range=12.0, sin_deg=31,
+                                                     double_angle=3))
     w = random_weights(3, 8, cfg.real_batch, fc_out=4, in_ch=1, seed=4,
                        scale=0.7)
     image = np.random.default_rng(6).uniform(-1, 1, (15, 15, 1))
@@ -374,3 +376,56 @@ def test_runner_layers_on_card_equal_cpu(dev, monkeypatch):
     for g, w_ in zip(got, want):
         _same_ct(g, w_)
     assert [c.level for c in got] == [1, 1]
+
+
+def test_fast_runner_layers_on_card_equal_cpu(dev, monkeypatch):
+    """FastResNetRunner's first two layers (Conv_inside at log_sparse 0:
+    two ciphertexts out of ctos, two ReLUs, the stride-1 keep masks) at
+    logN 10 on the card equal the CPU's bit for bit, on the CPU context's
+    keys."""
+    p = mini_boot_params(10, n_relu=14)
+    cpu = CkksContext(p, "cpu", seed=19)
+    card = CkksContext(p, dev, seed=19)
+    want = _first_two_layers(cpu, monkeypatch, "FastResNetRunner")
+    _share_keys(cpu, card)
+    held = len(card.switching_keys)
+    stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV)
+    before = [(s.launches, s.plain_calls) for s in stats]
+    got = _first_two_layers(card, monkeypatch, "FastResNetRunner")
+    for s, (launches, plain) in zip(stats, before):
+        assert s.launches > launches and s.plain_calls == plain
+    assert len(card.switching_keys) == held, "the card made a key"
+    for g, w_ in zip(got, want):
+        _same_ct(g, w_)
+    assert [c.level for c in got] == [1, 1]
+
+
+def test_conv_bn_bl_on_card_equals_cpu(dev):
+    """One baseline conv (ops.baseline.eval_conv_bn_bl: nine hoisted
+    rotations, the masked tap products, a rotated out-channel offset and
+    the bias) at logN 10 on the card equals the CPU's bit for bit."""
+    from optimal_conv_tpu_torch.ckks.params import CkksParams
+    from optimal_conv_tpu_torch.ops import baseline as bl
+
+    p = CkksParams(log_n=10, logq=(50, 40), logp=(55,), log_scale=30, h=64)
+    cpu = CkksContext(p, "cpu", seed=23)
+    card = CkksContext(p, dev, seed=23)
+    rng = np.random.default_rng(55)
+    in_wid, ch = 16, 2
+    img = np.zeros((in_wid, in_wid, ch))
+    img[:15, :15] = rng.uniform(-1, 1, (15, 15, ch))
+    ker = rng.uniform(-1, 1, (3, 3, ch, ch)) / 4
+    bn_a, bn_b = rng.uniform(0.8, 1.2, ch), rng.uniform(-0.3, 0.3, ch)
+    slots = bl.reshape_input_bl(img.ravel(), in_wid)
+    ct = cpu.encrypt(cpu.encoder.encode_slots(slots, p.scale, 1))
+    args = (ker.ravel(), bn_a, bn_b, in_wid, 3, ch, ch, 1)
+    want = bl.eval_conv_bn_bl(cpu, ct, *args)
+    _share_keys(cpu, card)
+    held = len(card.switching_keys)
+    stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV)
+    before = [(s.launches, s.plain_calls) for s in stats]
+    got = bl.eval_conv_bn_bl(card, _to_card(ct, dev), *args)
+    for s, (launches, plain) in zip(stats, before):
+        assert s.launches > launches and s.plain_calls == plain
+    assert len(card.switching_keys) == held, "the card made a key"
+    _same_ct(got, want)
