@@ -1,11 +1,12 @@
 """State exchange with the JAX package, as numpy arrays.
 
-The port's half of ``optimal_conv_tpu/utils/serialization.py``: it
-reads secret keys, switching keys, ciphertexts and plaintexts that the
-JAX package holds or saved, so both packages can compute on the same
-state.  Residues cross as integer arrays (uint64 or int64; every value
-is below 2^62) and become int64 tensors on the context's device.
-Nothing here imports JAX.
+The port's counterpart of ``optimal_conv_tpu/utils/serialization.py``:
+it reads secret keys, switching keys, ciphertexts and plaintexts that
+the JAX package holds or saved, so both packages can compute on the same
+state, and writes its own keys and ciphertexts in the JAX package's
+archive format.  Residues cross as integer arrays (uint64 or int64;
+every value is below 2^62) and become int64 tensors on the context's
+device.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from .ckks.context import CkksContext, SwitchingKey
 from .ckks.types import Ciphertext, Plaintext
+from .core.ntt import galois_perm_ntt
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -85,6 +87,37 @@ def load_keys(path: str, ctx: CkksContext) -> int:
                              "match its tag")
         keys[key] = (z[f"d0_{i}"], z[f"d1_{i}"])
     return load_switching_keys(ctx, keys)
+
+
+def save_keys(path: str, ctx: CkksContext) -> None:
+    """Write the secret key and every switching key of the context in
+    the JAX ``save_keys`` format (``serialization.py:37-60``): ``d0_i``,
+    ``d1_i``, for a pre-permuted hoisting key ("galh") ``perm_i``, its
+    NTT-domain permutation by φ_g⁻¹, and one index row a key, (repr(tag),
+    level, seed, "True", permuted).  Every key is written whole (d1
+    stored); the seed column is -1, since the port draws keys from
+    PyTorch's generator and no seed regenerates them in JAX."""
+    p = ctx.params
+    blobs = {"sk": ctx._sk_ints}
+    index = []
+    for i, (tag, swk) in enumerate(ctx.switching_keys.items()):
+        blobs[f"d0_{i}"] = to_numpy(swk.d0)
+        blobs[f"d1_{i}"] = to_numpy(swk.d1)
+        permuted = tag[0] == "galh"
+        if permuted:
+            blobs[f"perm_{i}"] = galois_perm_ntt(p.log_n,
+                                                 pow(tag[1], -1, 2 * p.n))
+        index.append((repr(tag), str(swk.level), "-1", "True", str(permuted)))
+    blobs["index"] = np.array(index, dtype=object)
+    np.savez_compressed(path, **blobs)
+
+
+def save_ciphertext(path: str, ct: Ciphertext) -> None:
+    """Write the JAX ``save_ciphertext`` format (``serialization.py:25-27``):
+    c0, c1 as uint64 residues, level, scale, is_ntt (always: the port
+    keeps every ciphertext in the NTT domain)."""
+    np.savez_compressed(path, c0=to_numpy(ct.c0), c1=to_numpy(ct.c1),
+                        level=ct.level, scale=ct.scale, is_ntt=True)
 
 
 def ciphertext_from_arrays(ctx: CkksContext, c0, c1, level: int,

@@ -135,19 +135,22 @@ def head_conv(ctx: CkksContext, cfg: ResNetConfig, ct: Ciphertext,
     return cfs[ctr: ctr + norm * n_out: norm]
 
 
-class _Layout:
+class Layout:
     """Where a runner keeps the features of each block in the N
     coefficients: pixel (i, j) of the block's raw² map at grid position
     (step·i + init, step·j + init) of an in_wid² grid with max_batch
     channel slots a position, channel c at slot c·norm.  init is
     step − 1 for an even raw width, else 0, as ``gen_keep_vec_stride``
     keeps it.  A runner gives ``layout(blk)`` → (in_wid, max_batch,
-    step, norm); the layers' keep masks and strided maps put each
-    layer's output there."""
+    step, norm) and ``raw_wid(blk)``; the layers' keep masks and strided
+    maps put each layer's output there."""
+
+    def raw_wid(self, blk: int) -> int:
+        return self.cfg.raw_in_wids[blk]
 
     def _index(self, blk: int, n_ch: int) -> np.ndarray:
         in_wid, mb, step, norm = self.layout(blk)
-        raw = self.cfg.raw_in_wids[blk]
+        raw = self.raw_wid(blk)
         init = 0 if raw % 2 == 1 else step - 1
         pos = step * np.arange(raw) + init
         return (pos[:, None, None] * in_wid * mb + pos[None, :, None] * mb
@@ -177,7 +180,7 @@ class _Layout:
         return self.ctx.encrypt(pt)
 
 
-class ResNetRunner(_Layout):
+class ResNetRunner(Layout):
     """Builds the per-model repack tables and the bootstrapper family,
     then runs encrypted inference layer by layer (one fused
     conv-BN-ReLU-boot per layer), as testResNet_crop_sparse does.
@@ -366,7 +369,7 @@ def _layer_done(what: str, t: float) -> None:
     print(f"  {what} done in {time.perf_counter() - t:.1f}s", flush=True)
 
 
-class FastResNetRunner(_Layout):
+class FastResNetRunner(Layout):
     """The crop_fast packing regime (testResNet_crop_fast_in,
     test.go:372-636): every layer stays on the in_wids[0] grid at
     log_sparse 0; the strided transitions double the dilation step
@@ -492,7 +495,7 @@ class FastResNetRunner(_Layout):
                          self.cfg.raw_in_wids[0], self.norm[2])
 
 
-class WideFastResNetRunner(_Layout):
+class WideFastResNetRunner(Layout):
     """The wide fast-regime models ``Resnet_crop_fast_wide2/3``
     (testResNet_crop_fast_wide_in, test.go:914-1207; newContext branches
     main.go:264-345).

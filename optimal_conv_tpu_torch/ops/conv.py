@@ -107,20 +107,27 @@ def encode_ker_final(ker: np.ndarray, i: int, in_wid: int, in_batch: int,
 
 def prep_ker(ctx: CkksContext, ker_in: np.ndarray, bn_a: np.ndarray,
              in_wid: int, ker_wid: int, real_ib: int, real_ob: int,
-             norm: int, trans: bool) -> list:
+             norm: int, trans: bool, in_norm: int | None = None) -> list:
     """Kernel reshape + BN fold + overload to max batch, then coeff-encode
     the kernel polys the pack reads (rows 0, norm, 2·norm, ...) as NTT +
-    Montgomery plaintexts; other entries stay None."""
+    Montgomery plaintexts; other entries stay None.
+
+    ``in_norm`` is the input channel stride where it differs from the
+    output one (None: ``norm``).  The ImageNet FC-1000 head reads input
+    channel c at 2c and writes its 1000 logits at stride 1
+    (``optimal_conv_tpu/ops/conv.py:116-150``)."""
     p = ctx.params
     max_bat = p.n // (in_wid * in_wid)
+    if in_norm is None:
+        in_norm = norm
     k_sz = ker_wid * ker_wid
     ker_rs = reshape_ker(ker_in, k_sz, real_ob, trans)
     ker_rs = ker_rs * np.asarray(bn_a)[:, None]
     max_ker = np.zeros((max_bat, max_bat * k_sz))
-    for i in range(real_ob):
-        for j in range(real_ib):
-            max_ker[norm * i, norm * j * k_sz: norm * j * k_sz + k_sz] \
-                = ker_rs[i, j * k_sz: j * k_sz + k_sz]
+    cols = (in_norm * k_sz * np.arange(real_ib)[:, None]
+            + np.arange(k_sz)).ravel()
+    max_ker[np.ix_(norm * np.arange(real_ob), cols)] = \
+        ker_rs[:, : real_ib * k_sz]
     out = [None] * max_bat
     for i in range(0, max_bat, norm):
         coeffs = encode_ker_final(max_ker, i, in_wid, max_bat, ker_wid)
@@ -229,12 +236,15 @@ def _conv_pack(ctx: CkksContext, c0: torch.Tensor, c1: torch.Tensor,
 def eval_conv_bn(ctx: CkksContext, ct_in: Ciphertext, ker_in: np.ndarray,
                  bn_a: np.ndarray, bn_b: np.ndarray, in_wid: int, ker_wid: int,
                  real_ib: int, real_ob: int, norm: int, out_scale: float,
-                 trans: bool = False) -> Ciphertext:
-    """Conv + BN: kernel prep, conv_then_pack, coeff-encoded bias."""
+                 trans: bool = False,
+                 in_norm: int | None = None) -> Ciphertext:
+    """Conv + BN: kernel prep, conv_then_pack, coeff-encoded bias.
+    ``in_norm``: the input channel stride (``prep_ker``); the bias stays
+    at the output stride ``norm``."""
     p = ctx.params
     max_batch = p.n // (in_wid * in_wid)
     pl = prep_ker(ctx, ker_in, bn_a, in_wid, ker_wid, real_ib, real_ob, norm,
-                  trans)
+                  trans, in_norm)
     b_coeffs = np.zeros(p.n)
     for i, b in enumerate(np.asarray(bn_b)):
         b_coeffs[norm * i::max_batch] = b

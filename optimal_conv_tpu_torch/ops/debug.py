@@ -235,6 +235,31 @@ class DebugOracle:
             out = rp.apply_rot_maps(out, m_idx)
         return rp.apply_rot_maps(out, r_idx)
 
+    def expected_output(self) -> np.ndarray | None:
+        """The N coefficients the layer's StoC should decode to: the
+        repack mirror of relu(conv)·2^pow, back in the coefficient
+        layout (None where the kind has no golden)."""
+        if not self.golden:
+            return None
+        r = [self._repack_mirror(ul, relu_np(w) * 2.0 ** self.pow)
+             if w is not None else None
+             for ul, w in enumerate(self.w_slots)]
+        want = np.zeros(self.n)
+        if self.ls == 0 and r[1] is not None:
+            want[: self.slots] = r[0][self.brv]
+            want[self.slots:] = r[1][self.brv]
+        elif r[0] is not None:
+            n_sub = self.slots >> self.ls
+            brv_s = np.array([rp.reverse_bits(i, self.logn - 1 - self.ls)
+                              for i in range(n_sub)])
+            sub = np.zeros(2 * n_sub)
+            sub[brv_s] = r[0][:n_sub]
+            sub[brv_s + n_sub] = r[0][n_sub: 2 * n_sub]
+            want[:: 1 << self.ls] = sub
+        else:
+            return None
+        return want
+
     def _info(self, ct) -> str:
         return f"lv={ct.level} scale=2^{np.log2(ct.scale):.1f}"
 
@@ -299,26 +324,6 @@ class DebugOracle:
             return
         if stage == "stoc":
             have = ctx.decrypt_decode_coeffs(data)
-            want = None
-            if self.golden:
-                r = [self._repack_mirror(ul, relu_np(w) * 2.0 ** self.pow)
-                     if w is not None else None
-                     for ul, w in enumerate(self.w_slots)]
-                want = np.zeros(self.n)
-                if self.ls == 0 and r[1] is not None:
-                    want[: self.slots] = r[0][self.brv]
-                    want[self.slots:] = r[1][self.brv]
-                elif r[0] is not None:
-                    n_sub = self.slots >> self.ls
-                    brv_s = np.array(
-                        [rp.reverse_bits(i, self.logn - 1 - self.ls)
-                         for i in range(n_sub)])
-                    sub = np.zeros(2 * n_sub)
-                    sub[brv_s] = r[0][:n_sub]
-                    sub[brv_s + n_sub] = r[0][n_sub: 2 * n_sub]
-                    want[:: 1 << self.ls] = sub
-                else:
-                    want = None
-            self._report(stage, want, have, ct=data)
+            self._report(stage, self.expected_output(), have, ct=data)
             return
         print(f"[debug {stage}] (unknown stage)", flush=True)

@@ -32,6 +32,7 @@ MODULES = ["optimal_conv_tpu_torch", "optimal_conv_tpu_torch.cli",
            "optimal_conv_tpu_torch.utils.mont_bench",
            "optimal_conv_tpu_torch.utils.bl_range",
            "optimal_conv_tpu_torch.models.resnet",
+           "optimal_conv_tpu_torch.models.imagenet",
            "optimal_conv_tpu_torch.utils.timing",
            "optimal_conv_tpu_torch.core.rns"]
 
