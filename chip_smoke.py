@@ -97,15 +97,29 @@ the port's main path at logN=16 on the Go fork's modulus chain:
   * one ``TransConv`` layer (``transconv_path``) on that context at the
     geometry of tests/test_pipeline_transconv.py at N = 2^16 (in_wid 16,
     raw 6, kp 14, 256 → 64 channels, pow 4, ``gen_extend_full`` maps)
-    against that test's mirror chain: max error < 5e-2.
+    against that test's mirror chain: max error < 5e-2;
+  * switching-key storage (``keys_path``, before the whole-model paths):
+    the runner's block-1 ResNet-20 layer on three fresh contexts of one
+    seed, every key stored whole, the defaults (seed-compressed keys at
+    logN 16, the default cache budgets) and a starved cache (half the
+    layer's d0 bytes resident, no memo budget), each to the layer bars,
+    the three outputs equal residue for residue; warm wall, device ms,
+    launches and key bytes by tier (d0, stored d1, memos) for each.
+
+The whole-model paths run under the default key settings: every path
+makes its keys seed-compressed at logN 16, and each ``memory`` line
+gives the keys' bytes by kind and tier, the cache's budgets and its
+evictions, and the peak.
 
 Every kernel's launch counter is zeroed just before each of these
 paths and must be nonzero after it, with no plain-version call.  Beside each
 kernel's time stands its bound: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its 32-bit integer
 instructions (counted from the compiled arithmetic by
-``optimal_conv_tpu_torch.utils.kernel_info``) over 64 lanes per SM per
-clock at the card's maximum SM clock.  K1 is held to its plain version
+``optimal_conv_tpu_torch.utils.kernel_info``) as issue slots, the larger
+of those on the ALU pipe, those on the FMA pipe (the IMAD family) and
+half of all, over 64 lanes per SM per clock at the card's maximum SM
+clock.  K1 is held to its plain version
 on every access path of its kernel (16-byte and 8-byte, column scalars,
 broadcast and sliced rows, the chained product) and timed at five
 shapes of the conv and two of a level-15 ct × ct product
@@ -113,7 +127,11 @@ shapes of the conv and two of a level-15 ct × ct product
 wrapper's host time per call; K2/K3 at the conv's shapes and at the 84,
 22, 5 and 1 rows of the ReLU's key switches and rescales; all three at
 the bootstrap's shapes (the digits and inner products of levels 27, 23, 3
-and 2).  After the
+and 2); d1_regen at the key halves of levels 27 ([6,33,N]) and 0
+([1,6,N]), unpermuted and permuted, against its plain version (every
+residue equal).  A path that makes keys must launch d1_regen (each
+key's uniform half is drawn by it); a warm run on made keys need not.
+After the
 paths one warm conv at 16²×256 is split into host-side kernel encoding
 and the device-side ``conv_then_pack``, one warm ``eval_relu`` is
 timed, and both fused layers are timed warm stage by stage, with the
@@ -140,11 +158,13 @@ import torch
 
 from optimal_conv_tpu_torch import cli
 from optimal_conv_tpu_torch.ckks import bootstrap as boot
-from optimal_conv_tpu_torch.ckks.context import CkksContext
+from optimal_conv_tpu_torch.ckks.context import GIB, CkksContext
 from optimal_conv_tpu_torch.ckks.params import boot_params
-from optimal_conv_tpu_torch.core import cuda_lib, mont_kernel, ntt_kernel
+from optimal_conv_tpu_torch.core import (cuda_lib, d1_kernel, mont_kernel,
+                                         ntt_kernel, threefry)
 from optimal_conv_tpu_torch.core import modmath as mm
-from optimal_conv_tpu_torch.core.ntt import NttContext, _ntt_fwd, _ntt_inv
+from optimal_conv_tpu_torch.core.ntt import (NttContext, _ntt_fwd, _ntt_inv,
+                                             galois_perm_ntt, rot_to_galois)
 from optimal_conv_tpu_torch.models import imagenet as imagenet_mod
 from optimal_conv_tpu_torch.models import resnet as resnet_mod
 from optimal_conv_tpu_torch.models.imagenet import (ImagenetFinalFastRunner,
@@ -164,13 +184,18 @@ from optimal_conv_tpu_torch.utils.timing import cuda_ms, cuda_ms_cold
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "ref_conv_3_0_1.json")
-STATS = [mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV]
+STATS = [mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV,
+         d1_kernel.STATS]
+K123 = STATS[:3]
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-INT32_LANES_PER_SM = 64        # Hopper architecture white paper
-# 32-bit integer instructions of one forward / inverse butterfly and one
-# Montgomery product as nvcc 12 compiles csrc/modarith.cuh for sm_90a
-# (kernel_info on an H100 machine); used only where cuobjdump is missing
-INT32_FALLBACK = {"fwd": 39, "inv": 35, "mul": 33, "mul2": 56}
+INT32_LANES_PER_SM = 64        # per pipe (ALU, FMA); Hopper white paper
+# (32-bit integer instructions, issue slots at 64 lanes) of one forward /
+# inverse butterfly, one Montgomery product and one regenerated key
+# residue as nvcc 12 compiles csrc/modarith.cuh and csrc/threefry.cuh for
+# sm_90a (kernel_info on an H100 machine); used only where cuobjdump is
+# missing
+INT32_FALLBACK = {"fwd": (39, 20), "inv": (35, 19), "mul": (33, 17),
+                  "mul2": (56, 28), "d1": (347, 224)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -187,7 +212,9 @@ def card_line() -> str:
 
 class Card:
     """The card's rates for the bounds, and the arithmetic's instruction
-    counts from this build."""
+    counts from this build: `int32` instructions and the `slots` they
+    take at 64 lanes an SM (``kernel_info.butterfly_instructions``: the
+    ALU and FMA pipes issue side by side), which set the bound."""
 
     def __init__(self, dev):
         out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -200,21 +227,24 @@ class Card:
         try:
             counts = kernel_info.butterfly_instructions()
             self.int32 = {k: v["int32"] for k, v in counts.items()}
+            self.slots = {k: v["issue_slots"] for k, v in counts.items()}
             self.int32_from = "SASS of this build"
         except (RuntimeError, OSError, subprocess.CalledProcessError) as e:
-            self.int32 = dict(INT32_FALLBACK)
+            self.int32 = {k: v[0] for k, v in INT32_FALLBACK.items()}
+            self.slots = {k: v[1] for k, v in INT32_FALLBACK.items()}
             self.int32_from = f"recorded counts ({type(e).__name__}: {e})"
         self.k1_whole = kernel_info.mont_kernel_instructions()
         print(f"bounds: {HBM_BYTES_PER_S / 1e12} TB/s; {self.sms} SMs x "
-              f"{INT32_LANES_PER_SM} int32 lanes x {self.sm_hz / 1e9:.3f} GHz = "
-              f"{self.int32_per_s / 1e12:.2f} T int32/s; instructions "
-              f"{self.int32} from {self.int32_from}")
+              f"{INT32_LANES_PER_SM} lanes a pipe x {self.sm_hz / 1e9:.3f} GHz "
+              f"= {self.int32_per_s / 1e12:.2f} T issue slots/s; instructions "
+              f"{self.int32}, issue slots {self.slots} from {self.int32_from}")
 
-    def bound(self, n_bytes: float, n_int32: float) -> dict:
+    def bound(self, n_bytes: float, n_slots: float) -> dict:
         """bound_ms = the larger of bytes and 32-bit integer operations
-        over the card's rates, and which of the two it is."""
+        (as issue slots at 64 lanes) over the card's rates, and which of
+        the two it is."""
         b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        o_ms = n_int32 / self.int32_per_s * 1e3
+        o_ms = n_slots / self.int32_per_s * 1e3
         return dict(bound_ms=max(b_ms, o_ms), bytes_ms=b_ms, int32_ms=o_ms,
                     bound_by="bytes" if b_ms >= o_ms else "operations",
                     operation_type="int32")
@@ -222,7 +252,7 @@ class Card:
     def ntt_bound(self, rows: int, limbs: int, log_n: int, inverse: bool):
         n = 1 << log_n
         n_bytes = 8 * (2 * rows * n + limbs * n)       # in, out, twiddles
-        ops = rows * log_n * (n // 2) * self.int32["inv" if inverse else "fwd"]
+        ops = rows * log_n * (n // 2) * self.slots["inv" if inverse else "fwd"]
         return self.bound(n_bytes, ops)
 
 
@@ -309,7 +339,7 @@ def check_mont(dev, p, rng, card):
         plain_ms = cuda_ms(lambda: plain(*case["args"]), dev, iters=3, warmup=1)
         elems = pl.rows * pl.n
         bnd = card.bound(mont_bench.case_bytes(case),
-                         elems * card.int32["mul2" if pl.chained else "mul"])
+                         elems * card.slots["mul2" if pl.chained else "mul"])
         whole = card.k1_whole[pl.vec, pl.chained]
         whole_ms = elems * whole["int32_per_element"] / card.int32_per_s * 1e3
         rows.append(dict(shape=case["shape"], plain_ms=plain_ms, library_ms=None,
@@ -482,6 +512,61 @@ def check_ntt(dev, p, rng, card):
     return out
 
 
+def check_d1(dev, p, card):
+    """The d1_regen kernel against its plain version on the card: the key
+    halves of level 27 ([6,33,N], the bootstrap's CtoS keys) and of level
+    0 ([1,6,N], the conv's pack keys), each unpermuted (a Galois or
+    relinearisation key) and permuted by φ_g⁻¹ (a pre-permuted hoisting
+    key); each equal to the plain draw, then timed beside its bound."""
+    n = p.n
+    ntt = NttContext(p.moduli, p.log_n, dev)
+    g_inv = pow(rot_to_galois(5, p.log_n), -1, 2 * n)
+    perm = torch.from_numpy(galois_perm_ntt(p.log_n, g_inv).copy()).to(dev)
+    seed = (1 << 40) + 20240
+    err, rows = 0.0, []
+    for level in (27, 0):
+        qp = p.qp_idx(level)
+        beta = len(p.digits(level))
+        tabs = ntt.tabs(qp)
+        shape = f"[{beta},{len(qp)},{n}]"
+        for pm in (None, perm):
+            what = f"d1_regen {shape}{' permuted' if pm is not None else ''}"
+            before = d1_kernel.STATS.launches, d1_kernel.STATS.plain_calls
+            got = threefry.uniform_mont(seed, beta, *tabs, n, pm)
+            check((d1_kernel.STATS.launches, d1_kernel.STATS.plain_calls)
+                  == (before[0] + 1, before[1]),
+                  f"{what}: not one launch, or a plain call")
+            want = threefry.uniform_mont_plain(seed, beta, *tabs, n, pm)
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f"{what} differs from plain")
+            err = max(err, max_err(got, want))
+            def run():
+                return d1_kernel.d1_regen_cuda(seed, beta, *tabs, n, pm)
+
+            # a level-0 key is a few microseconds of work, less than the
+            # wrapper's host time: timed after an L2 flush that keeps the
+            # card busy while the call is enqueued, as K2/K3's small shapes
+            ms = (cuda_ms(run, dev, iters=20) if level else
+                  cuda_ms_cold(run, dev, iters=30, warmup=20))
+            plain_ms = cuda_ms(lambda: threefry.uniform_mont_plain(
+                seed, beta, *tabs, n, pm), dev, iters=3, warmup=1)
+            elems = beta * len(qp) * n
+            # output written once; perm and the four tables read once
+            n_bytes = 8 * (elems + 4 * len(qp) + (0 if pm is None else n))
+            bnd = card.bound(n_bytes, elems * card.slots["d1"])
+            rows.append(dict(shape=shape, permuted=pm is not None, ms=ms,
+                             plain_ms=plain_ms, library_ms=None, **bnd))
+            print(f"{what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (bytes "
+                  f"{bnd['bytes_ms']:.4f}, int32 {bnd['int32_ms']:.4f} at "
+                  f"{card.slots['d1']} issue slots a residue, "
+                  f"{card.int32['d1']} instructions); max_abs_err "
+                  f"{max_err(got, want)}")
+    del ntt
+    # no PyTorch call draws threefry residues modulo a prime
+    return dict(max_abs_err=err, shapes=rows, **rows[0])
+
+
 def main_path(dev, card):
     """Phases 4-5: conv at the four geometries and the FC head."""
     p = boot_params(16)
@@ -589,7 +674,7 @@ def where_time_goes(dev, card):
 def _profile_groups(fn, dev):
     """One call of fn() under ``torch.profiler``: → (wall ms, device
     kernel ms, {group: {launches, ms}}) with the device kernels grouped
-    into K1, K2, K3 and PyTorch's own.  Reads the profiler's raw events
+    into K1, K2, K3, d1_regen and PyTorch's own.  Reads the profiler's raw events
     (``prof.profiler.kineto_results``, private; checked on torch
     2.11.0+cu128): building its Python event tree costs about 15 s a
     layer.  The first call holds the raw count of device events against
@@ -615,7 +700,8 @@ def _profile_groups(fn, dev):
         key = ("ntt_pass<inverse>" if "ntt_pass<true>" in name
                or "ntt_pass<(bool)1>" in name else
                "ntt_pass<forward>" if "ntt_pass" in name else
-               "mont_mul_kernel" if "mont_mul" in name else "torch kernels")
+               "mont_mul_kernel" if "mont_mul" in name else
+               "d1_regen_kernel" if "d1_regen" in name else "torch kernels")
         g = groups.setdefault(key, [0, 0])
         g[0] += 1
         g[1] += ev.duration_ns()
@@ -781,7 +867,7 @@ def relu_times(ctx, dev, card):
     for s in STATS:
         s.reset()
     eval_relu(ctx, ct)
-    _read_counts("one warm eval_relu", dev)
+    _read_counts("one warm eval_relu", dev, need=K123)
     wall, busy, groups = _profile_groups(lambda: eval_relu(ctx, ct), dev)
     print(f"eval_relu under the profiler: wall {wall:.2f} ms, device kernels "
           f"{busy:.3f} ms (busy {100 * busy / wall:.1f}%): {json.dumps(groups)}")
@@ -789,7 +875,7 @@ def relu_times(ctx, dev, card):
     rlk = [k for tag, k in ctx.switching_keys.items()
            if tag[0] == "rlk" and lo <= k.level < hi]
     print(f"relinearisation keys of the ReLU levels {lo}-{hi - 1}: "
-          f"{sum(k.d0.numel() * 16 for k in rlk) / 2**30:.3f} GiB in "
+          f"{sum(sum(_tiers(k)) for k in rlk) / 2**30:.3f} GiB in "
           f"{len(rlk)} keys")
 
 
@@ -797,14 +883,32 @@ def _bit_reverse(bits: int) -> np.ndarray:
     return np.array([rp.reverse_bits(i, bits) for i in range(1 << bits)])
 
 
+def _tiers(k) -> tuple:
+    """Device bytes of one switching key: (d0, stored d1, memoised d1)."""
+    n_bytes = k.d0.numel() * 8
+    return (n_bytes, n_bytes if k.d1 is not None else 0,
+            n_bytes if k.d1 is None and k.d1_cache is not None else 0)
+
+
 def key_bytes(ctx) -> dict:
-    """Device bytes of the context's switching keys by kind: plain Galois
-    keys (giants, conjugation, SubSum, repack rotations), pre-permuted
-    hoisting keys (babies) and relinearisation keys."""
-    out = {"gal": 0, "galh": 0, "rlk": 0}
+    """Device bytes of the context's switching keys by kind and tier:
+    plain Galois keys (giants, conjugation, SubSum, repack rotations),
+    pre-permuted hoisting keys (babies) and relinearisation keys, each as
+    {d0, the stored d1 of uncompressed keys, the d1 memos of compressed
+    ones}."""
+    out = {k: dict(d0=0, d1=0, memo=0) for k in ("gal", "galh", "rlk")}
     for tag, k in ctx.switching_keys.items():
-        out[tag[0]] += (k.d0.numel() + k.d1.numel()) * 8
+        for tier, n_bytes in zip(("d0", "d1", "memo"), _tiers(k)):
+            out[tag[0]][tier] += n_bytes
     return out
+
+
+def cache_line(ctx) -> str:
+    c = ctx._swk_cache
+    return (f"key cache: compress_keys {ctx.compress_keys}, resident "
+            f"{_gib(c.d0_bytes)} of {_gib(c.max_bytes)}, memos "
+            f"{_gib(c.d1_bytes)} of {_gib(c.expand_bytes)}, {len(c.d)} keys, "
+            f"{c._evict_n} evictions")
 
 
 def _gib(n_bytes) -> str:
@@ -1011,7 +1115,7 @@ def _time_layer(what, fn, dev, card) -> None:
     for s in STATS:
         s.reset()
     fn(None)
-    _read_counts(f"one warm {what}", dev)
+    _read_counts(f"one warm {what}", dev, need=K123)
     wall, busy, groups = _profile_groups(lambda: fn(None), dev)
     print(f"{what} warm, {card}: wall ms {[round(t, 1) for t in walls]}; by "
           f"stage, a synchronise after each (sum "
@@ -1108,8 +1212,10 @@ def memory_line(ctx, dev, fam, what: str) -> None:
     n_keys = {k: sum(1 for t in ctx.switching_keys if t[0] == k) for k in kb}
     pts = {ls: fam[ls].plaintext_bytes() for ls in range(5) if ls in fam}
     print(f"memory {what}: switching keys "
-          + ", ".join(f"{k} {n_keys[k]} keys {_gib(v)}" for k, v in kb.items())
-          + "; bootstrap plaintexts "
+          + ", ".join(f"{k} {n_keys[k]} keys (d0 {_gib(v['d0'])}, stored d1 "
+                      f"{_gib(v['d1'])}, memos {_gib(v['memo'])})"
+                      for k, v in kb.items())
+          + f"; {cache_line(ctx)}; bootstrap plaintexts "
           + ", ".join(f"log_sparse {ls} {_gib(v)}" for ls, v in pts.items())
           + f"; allocated now {_gib(torch.cuda.memory_allocated(dev))}, peak "
           f"{_gib(torch.cuda.max_memory_allocated(dev))}")
@@ -1320,6 +1426,97 @@ def print_profiled(label, probe, card, total_ms) -> None:
           f"profiler's own work; layers + head wall {wall:.1f} ms, device "
           f"kernels {busy:.3f} ms (busy {100 * busy / wall:.1f}%): "
           + json.dumps(groups))
+
+
+KEYS_SEED = 12
+
+
+def keys_path(dev, card) -> dict:
+    """Phase 15, before the whole-model paths: switching-key storage.
+    The runner's block-1 layer of ResNet-20 (``Conv_sparse``, log_sparse
+    2) on one seeded input, on
+    three fresh contexts of one seed, one after the other: every key
+    stored whole (``compress_keys=False``); the defaults (seed-compressed
+    at logN 16, the default budgets); and a starved cache (a resident
+    budget of half the layer's d0 bytes under the defaults, no memo
+    budget: keys are evicted and made again, d1 regenerated at every
+    use).  Each: the first call (keys made) with its launch counts, then
+    warm walls, the launches of one warm call and one call under the
+    profiler, the key bytes by tier and the peak.  The three outputs must
+    be equal residue for residue, and held to the layer bars."""
+    p = boot_params(16)
+    variants = [("compress_keys=False", dict(compress_keys=False)),
+                ("defaults", {}), ("starved", None)]
+    outs, counts, summary = [], {}, {}
+    for label, kw in variants:
+        if kw is None:
+            kw = dict(key_cache_gib=summary["defaults"]["d0_bytes"] / 2 / GIB,
+                      key_expand_gib=0.0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ctx = CkksContext(p, dev, seed=KEYS_SEED, **kw)
+        t0 = time.perf_counter()
+        fam = boot.BootstrapperFamily(ctx)
+        runner, w = block1_runner(ctx)
+        fam[runner.log_sparse[0]]
+        build_s = time.perf_counter() - t0
+        cfg, li = runner.cfg, 1
+        raw, in_wid = cfg.raw_in_wids[0], cfg.in_wids[0]
+        img = np.random.default_rng(13).uniform(-1, 1,
+                                                (raw, raw, w.convs[li].shape[2]))
+        ct = ctx.encrypt(ctx.encoder.encode_coeffs(
+            convops.prep_input(img.ravel(), raw, in_wid, p.n, runner.norm[0]),
+            p.scale, convops.ECD_LEVEL))
+
+        def layer():
+            return block1_layer(ctx, fam, runner, w, ct)
+
+        for s in STATS:
+            s.reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = layer()
+        torch.cuda.synchronize(dev)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts[f"keys path ({label})"] = _read_counts(
+            f"keys path ({label}), first call", dev)
+        pre = (convops.conv2d_same_np(img, w.convs[li]) * w.bn_a[li]
+               + w.bn_b[li])
+        _layer_check(ctx, runner, out, pre, f"keys path ({label}) layer")
+        walls = [_wall_ms(layer, dev, iters=1) for _ in range(3)]
+        warm = _counts_of(layer, dev)
+        wall, busy, groups = _profile_groups(layer, dev)
+        cache = ctx._swk_cache
+        kb = key_bytes(ctx)
+        summary[label] = dict(
+            first_ms=first_ms, warm_ms=walls, device_ms=busy,
+            warm_launches=warm, d0_bytes=cache.d0_bytes,
+            memo_bytes=cache.d1_bytes, evictions=cache._evict_n,
+            peak_gib=torch.cuda.max_memory_allocated(dev) / GIB)
+        print(f"keys path ({label}), {card}: bootstrapper built in "
+              f"{build_s:.2f} s; first call {first_ms:.1f} ms (keys made); warm "
+              f"wall ms {[round(t, 1) for t in walls]}; launches of one warm "
+              f"call {json.dumps(warm)}; under the profiler wall {wall:.2f} ms, "
+              f"device kernels {busy:.3f} ms (busy {100 * busy / wall:.1f}%): "
+              f"{json.dumps(groups)}")
+        print(f"keys path ({label}): {cache_line(ctx)}; by kind and tier "
+              + json.dumps({k: {t: round(b / GIB, 4) for t, b in v.items()}
+                            for k, v in kb.items()})
+              + f" GiB; peak {summary[label]['peak_gib']:.3f} GiB")
+        outs.append((out.c0.clone(), out.c1.clone(), out.level, out.scale))
+        del ctx, fam, runner, ct, out, cache
+    for (label, _), o in zip(variants[1:], outs[1:]):
+        check(o[2:] == outs[0][2:] and torch.equal(o[0], outs[0][0])
+              and torch.equal(o[1], outs[0][1]),
+              f"keys path: the layer's output under {label} differs from "
+              "compress_keys=False")
+    whole, dflt = summary["compress_keys=False"], summary["defaults"]
+    print(f"keys path: the three outputs are equal residue for residue; "
+          f"device ms defaults / compress_keys=False "
+          f"{dflt['device_ms'] / whole['device_ms']:.4f}; "
+          + json.dumps(summary))
+    torch.cuda.empty_cache()
+    return counts
 
 
 def resnet_path(dev, card):
@@ -1739,7 +1936,8 @@ def imagenet_path(dev, card) -> dict:
         imagenet_image(label, ctx, dev, card, model)
     counts = {"imagenet path": _read_counts("imagenet path", dev)}
     transconv_path(ctx, dev, tail.btps)
-    counts["transconv path"] = _read_counts("transconv path", dev)
+    # on the tail's context: the keys it needs may all be made already
+    counts["transconv path"] = _read_counts("transconv path", dev, need=K123)
     for label, (runner, w, fc_w, fc_b, x, _) in models:
         probe = ImagenetProbe(ctx, dev, runner, profile=True)
         t0 = time.perf_counter()
@@ -1828,17 +2026,20 @@ def bl_path(ctx, dev, card, fam) -> dict:
     return counts
 
 
-def _read_counts(path: str, dev) -> dict:
-    """The wrappers' counters after one path: every kernel launched, no
-    plain version called.  Then zeroed for the next path."""
+def _read_counts(path: str, dev, need=STATS) -> dict:
+    """The wrappers' counters after one path: every kernel of `need`
+    launched, no plain version called.  Then zeroed for the next path.
+    A path that makes switching keys launches d1_regen (every key's
+    uniform half is drawn by it); a warm run on made keys need not."""
     torch.cuda.synchronize(dev)
     counts = {s.name: (s.launches, s.plain_calls) for s in STATS}
     by_rows = {s.name: {str(r): c for r, c in sorted(s.by_rows.items())}
                for s in STATS}
     print(f"{path} launches / plain calls: {counts}")
     print(f"{path} launches by rows of the call: {json.dumps(by_rows)}")
+    for s in need:
+        check(s.launches > 0, f"{s.name}: no launch on the {path}")
     for name, (launches, plain) in counts.items():
-        check(launches > 0, f"{name}: no launch on the {path}")
         check(plain == 0, f"{name}: plain version ran on the {path}")
     for s in STATS:
         s.reset()
@@ -1864,6 +2065,7 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     k1 = check_mont(dev, p, rng, rates)
     k23 = check_ntt(dev, p, rng, rates)
+    d1 = check_d1(dev, p, rates)
 
     for s in STATS:
         s.reset()
@@ -1906,6 +2108,7 @@ def main() -> int:
     # keys live in a dict that only grows
     del ctx, fam, held, a, b
     torch.cuda.empty_cache()
+    paths.update(keys_path(dev, card))
     paths["resnet path"] = resnet_path(dev, card)
     torch.cuda.empty_cache()
     paths["fast path"] = fast_path(dev, card)
@@ -1922,7 +2125,12 @@ def main() -> int:
                  **k23["ntt_fwd"]),
             dict(name="ntt_inv", route="cuda", source=src + "ntt.cu",
                  replaces="optimal_conv_tpu/core/pallas_ntt.py:199",
-                 **k23["ntt_inv"])]
+                 **k23["ntt_inv"]),
+            dict(name="d1_regen", route="cuda", source=src + "d1_regen.cu",
+                 replaces="optimal_conv_tpu/ckks/context.py:298",
+                 note="on the TPU an XLA composite (jax.random.bits threefry, "
+                 "two Montgomery products, a gather), not a Pallas kernel",
+                 **d1)]
     for row in rows:
         name = row["name"]
         row["launches"] = sum(c["launches"][name] for c in paths.values())

@@ -8,10 +8,17 @@ set_scale), monomial products, and hybrid RNS key switching with special
 primes P behind Galois automorphisms: single rotations, hoisted
 rotations (decompose once, rotate many) and their lazy form that leaves
 the division by P to the caller.  The JAX package's per-level compiled
-closures are ordinary methods that take the level here; its key cache
-with eviction and its seed-compressed keys are not ported: keys are made
-at first use, at the level where they are used, and stay in
-``switching_keys`` with both halves stored.
+closures are ordinary methods that take the level here.
+
+Switching keys are made at first use, at the level where they are used,
+and live in ``_KeyCache`` (``switching_keys`` is its ordered dict), an
+LRU/MRU cache with two byte budgets as in the JAX package: the resident
+halves, and the memos of regenerated d1.  From logN 14 on (or with
+``compress_keys=True``) a key is seed-compressed: it stores d0 and the
+seed of its uniform half d1, which ``swk_d1`` regenerates
+(``core/threefry.py``, on the card the ``d1_regen`` kernel) and
+memoises on the key.  Eviction is transparent: a key's seed is a
+function of its tag (``_key_seed``), so a key made again is the same key.
 
 Polynomials are ``[..., l+1, N]`` int64 tensors on the context's device,
 NTT (bit-reversed) domain and standard form.  The evaluator functions
@@ -21,14 +28,17 @@ channel products and key switches.
 Randomness mirrors the JAX package: the secret key and the encryption
 noise come from ``np.random.default_rng(seed)`` in the same draw order,
 so one seed gives the same key and the same ciphertexts in both
-packages.  Switching keys are drawn on the device from a
-``torch.Generator`` seeded per key by ``_key_seed``; they differ from
-the JAX package's (threefry), which tests import through ``interop``.
+packages.  A switching key's uniform half is JAX's threefry draw from
+the key's seed, bit for bit; its noise e is drawn from a
+``torch.Generator`` seeded by the same seed, so d0 differs from the JAX
+package's (tests import d0 through ``interop``).
 """
 
 from __future__ import annotations
 
 import hashlib
+from collections import OrderedDict
+from collections.abc import MutableMapping
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,6 +46,7 @@ import torch
 
 from ..core import modmath as mm
 from ..core import ntt as nttmod
+from ..core import threefry
 from ..device import resolve_device
 from .encoding import Encoder
 from .params import CkksParams, DeviceTables
@@ -44,15 +55,161 @@ from .types import Ciphertext, Plaintext
 
 @dataclass
 class SwitchingKey:
-    d0: torch.Tensor          # [beta, l+1+P, N]  NTT + Montgomery
-    d1: torch.Tensor          # [beta, l+1+P, N]  uniform, NTT + Montgomery
-    level: int
+    d0: torch.Tensor            # [beta, l+1+P, N]  NTT + Montgomery
+    d1: torch.Tensor | None     # uniform, NTT + Montgomery; None when
+    level: int                  # seed-compressed (regenerated from `seed`)
+    seed: int | None = None
+    # the regenerated d1 of a compressed key, memoised: the cache drops it
+    # first under its memo budget, and it regenerates bit for bit
+    d1_cache: torch.Tensor | None = None
+    # a pre-permuted hoisting key ("galh"): d0/d1 carry φ_g⁻¹ applied in
+    # the NTT domain; `perm` is that permutation, re-applied when d1
+    # regenerates from the seed
+    perm: torch.Tensor | None = None
+
+
+GIB = 1 << 30
+# Budgets of the key cache on the card, in GiB (PERF.md §5 says how they
+# were chosen): resident d0 (and the d1 of uncompressed keys), and the
+# memos of regenerated d1.
+KEY_CACHE_GIB = 16.0
+KEY_EXPAND_GIB = 16.0
+
+
+class _KeyCache(MutableMapping):
+    """Switching-key cache with two byte budgets (the JAX package's
+    ``_KeyCache``), and the tag → key mapping ``switching_keys``: every
+    write goes through ``put``, so every key is charged.
+
+    `max_bytes` bounds the resident halves (d0, and d1 where a key stores
+    it); `expand_bytes` bounds the d1 memos of compressed keys.  Keys are
+    regenerable from their per-key seed, so dropping one is transparent:
+    a miss makes the identical key again.  Neither tier ever drops the
+    most-recent entry: it may be the key being expanded right now, and
+    its caller may hold no other reference.
+
+    Eviction policy: a fused layer touches its keys cyclically (CtoS
+    stages → ReLU → repack → StoC, every layer), and when that set
+    exceeds the budget LRU evicts every key just before its next use.
+    "mru" evicts the second-most-recent entry instead, which under a
+    cyclic scan pins the first budget's worth of keys; every 8th eviction
+    still takes the LRU end, so a pinned set that is no longer used
+    drains."""
+
+    def __init__(self, max_bytes: int, expand_bytes: int | None = None,
+                 policy: str = "mru"):
+        if policy not in ("mru", "lru"):
+            raise ValueError(f"key eviction policy {policy!r}: mru or lru")
+        self.max_bytes = max_bytes
+        self.expand_bytes = max_bytes if expand_bytes is None else expand_bytes
+        self.d: OrderedDict = OrderedDict()
+        self.d0_bytes = 0
+        self.d1_bytes = 0
+        self.evict_mru = policy == "mru"
+        self._evict_n = 0
+
+    @staticmethod
+    def _size0(swk: SwitchingKey) -> int:
+        b = swk.d0.numel() * 8
+        if swk.d1 is not None:
+            b *= 2
+        return b
+
+    @staticmethod
+    def _memo(swk: SwitchingKey) -> int:
+        """Bytes of the key's d1 memo (a compressed key's only)."""
+        if swk.d1 is None and swk.d1_cache is not None:
+            return swk.d0.numel() * 8
+        return 0
+
+    def __getitem__(self, key) -> SwitchingKey:
+        return self.d[key]
+
+    def __setitem__(self, key, swk: SwitchingKey):
+        self.put(key, swk)
+
+    def __delitem__(self, key):
+        self._refund(self.d.pop(key))
+
+    def __iter__(self):
+        return iter(self.d)
+
+    def __len__(self) -> int:
+        return len(self.d)
+
+    def get(self, key, default=None):
+        got = self.d.get(key)
+        if got is None:
+            return default
+        self.d.move_to_end(key)
+        return got
+
+    def put(self, key, swk: SwitchingKey):
+        old = self.d.pop(key, None)
+        if old is not None:                 # a key loaded over itself
+            self._refund(old)
+        self.d[key] = swk
+        self.d0_bytes += self._size0(swk)
+        self.d1_bytes += self._memo(swk)
+        self._trim()
+
+    def memoise(self, swk: SwitchingKey, d1: torch.Tensor):
+        """Memoise a compressed key's regenerated d1 and charge the memo
+        budget.  A key the cache no longer holds (evicted while its
+        caller kept it) is not memoised: nothing would refund it."""
+        if swk.d1_cache is None and any(v is swk for v in self.d.values()):
+            swk.d1_cache = d1
+            self.d1_bytes += self._memo(swk)
+            self._trim()
+
+    def forget(self, swk: SwitchingKey):
+        """Drop a compressed key's d1 memo and refund it."""
+        self.d1_bytes -= self._memo(swk)
+        if swk.d1 is None:
+            swk.d1_cache = None
+
+    def _trim(self):
+        # memo tier: drop the coldest memos first, never the most-recent
+        # entry's
+        if self.d1_bytes > self.expand_bytes:
+            for swk in list(self.d.values())[:-1]:
+                if self.d1_bytes <= self.expand_bytes:
+                    break
+                self.forget(swk)
+        # resident tier: evict whole keys; mru drops the second-most-
+        # recent entry, lru the coldest
+        while self.d0_bytes > self.max_bytes and len(self.d) > 1:
+            self._evict_n += 1
+            if self.evict_mru and (self._evict_n % 8 or len(self.d) == 2):
+                it = reversed(self.d)
+                next(it)
+                old = self.d.pop(next(it))
+            else:
+                _, old = self.d.popitem(last=False)
+            self._refund(old)
+
+    def _refund(self, old: SwitchingKey):
+        self.d0_bytes -= self._size0(old)
+        self.d1_bytes -= self._memo(old)
 
 
 class CkksContext:
-    def __init__(self, params: CkksParams, device, seed: int = 0):
+    """compress_keys: "auto" (seed-compressed keys from logN 14 on, as the
+    JAX package), True or False.  key_cache_gib / key_expand_gib: the
+    key cache's resident and memo budgets in GiB."""
+
+    def __init__(self, params: CkksParams, device, seed: int = 0,
+                 compress_keys: bool | str = "auto",
+                 key_cache_gib: float = KEY_CACHE_GIB,
+                 key_expand_gib: float = KEY_EXPAND_GIB):
+        if compress_keys not in ("auto", True, False):
+            raise ValueError(f"compress_keys={compress_keys!r}: 'auto', True "
+                             "or False")
         self.params = params
         self.device = resolve_device(device)
+        self.compress_keys = (params.log_n >= 14 if compress_keys == "auto"
+                              else compress_keys)
+        self._key_budgets = (int(key_cache_gib * GIB), int(key_expand_gib * GIB))
         self.tables = DeviceTables(params, self.device)
         self.encoder = Encoder(params, self.tables)
         self.rng = np.random.default_rng(seed)
@@ -84,7 +241,13 @@ class CkksContext:
         # pointwise product in the NTT domain
         q, qinv, r2, _ = self.ntt.tabs(all_idx)
         self.sk2_ntt = mm.mul_mod(self.sk_ntt, self.sk_ntt, q, qinv, r2)
-        self.switching_keys: dict = {}
+        self._swk_cache = _KeyCache(*self._key_budgets)
+
+    @property
+    def switching_keys(self) -> _KeyCache:
+        """tag → SwitchingKey, coldest first: the key cache itself, so an
+        entry written here is charged to its budgets like any other."""
+        return self._swk_cache
 
     def _key_seed(self, tag) -> int:
         """Deterministic per-key seed (same derivation as the JAX package)."""
@@ -143,6 +306,14 @@ class CkksContext:
     # switching keys
     # ------------------------------------------------------------------
 
+    def _uniform_mont(self, seed: int, beta: int, level: int,
+                      perm: torch.Tensor | None = None) -> torch.Tensor:
+        """[beta, l+1+P, N] uniform residues of `seed`, JAX's draw bit for
+        bit (``core/threefry.py``; the ``d1_regen`` kernel on the card)."""
+        q, qinv, r2, r1 = self.ntt.tabs(self.params.qp_idx(level))
+        return threefry.uniform_mont(seed, beta, q, qinv, r2, r1,
+                                     self.params.n, perm)
+
     def gen_switching_key(self, s_from_ntt: torch.Tensor, level: int,
                           seed: int) -> SwitchingKey:
         """Key switching s_from → s at `level` (hybrid, P primes).
@@ -150,18 +321,17 @@ class CkksContext:
         s_from_ntt: [l+1+P, N] on the limbs qp_idx(level).
         d0_d = -a_d·s + e_d + P·w_d·s_from (w_d the CRT indicator of
         digit d), stored NTT + Montgomery; d1_d = a_d, a uniform residue
-        read directly as the Montgomery form of another uniform one."""
+        from `seed` read directly as the Montgomery form of another
+        uniform one.  A compressed key keeps d0 and the seed; ``swk_d1``
+        draws a again; its first draw stays on the key as the memo."""
         p = self.params
         qp = p.qp_idx(level)
         q, qinv, r2, _ = self.ntt.tabs(qp)
         digits = p.digits(level)
         beta = len(digits)
+        a_mont = self._uniform_mont(seed, beta, level)        # [beta, nqp, N]
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed & ((1 << 63) - 1))
-        a_mont = torch.stack(
-            [torch.randint(0, p.moduli[i], (beta, p.n), generator=gen,
-                           device=self.device, dtype=torch.int64)
-             for i in qp], dim=1)                              # [beta, nqp, N]
         e = torch.round(torch.randn((beta, 1, p.n), generator=gen,
                                     device=self.device, dtype=torch.float64)
                         * p.sigma).to(torch.int64)
@@ -177,17 +347,34 @@ class CkksContext:
         ps = mm.mont_mul(s_from_ntt[None], torch.from_numpy(pw).to(self.device),
                          q, qinv)
         b = mm.add_mod(mm.sub_mod(e_ntt, a_s, q), ps, q)
-        return SwitchingKey(mm.to_mont(b, q, qinv, r2), a_mont, level)
+        d0 = mm.to_mont(b, q, qinv, r2)
+        if self.compress_keys:
+            return SwitchingKey(d0, None, level, seed=seed, d1_cache=a_mont)
+        return SwitchingKey(d0, a_mont, level, seed=seed)
+
+    def swk_d1(self, swk: SwitchingKey) -> torch.Tensor:
+        """The key's uniform half: stored, memoised, or regenerated from
+        its seed (and permuted by its `perm`) and memoised.  The memo may
+        be dropped by the cache's memo budget at once; the tensor returned
+        stays valid."""
+        if swk.d1 is not None:
+            return swk.d1
+        if swk.d1_cache is None:
+            d1 = self._uniform_mont(swk.seed, swk.d0.shape[0], swk.level,
+                                    swk.perm)
+            self._swk_cache.memoise(swk, d1)
+            return d1
+        return swk.d1_cache
 
     def relin_key(self, level: int) -> SwitchingKey:
         """Switching key s² → s at `level` (generated on first use)."""
         key = ("rlk", level)
-        swk = self.switching_keys.get(key)
+        swk = self._swk_cache.get(key)
         if swk is None:
             swk = self.gen_switching_key(
                 self._rows(self.sk2_ntt, self.params.qp_idx(level)), level,
                 seed=self._key_seed(key))
-            self.switching_keys[key] = swk
+            self._swk_cache.put(key, swk)
         return swk
 
     def galois_key(self, g: int, level: int) -> SwitchingKey:
@@ -195,7 +382,7 @@ class CkksContext:
         p = self.params
         g = g % (2 * p.n)
         key = ("gal", g, level)
-        swk = self.switching_keys.get(key)
+        swk = self._swk_cache.get(key)
         if swk is None:
             qp = p.qp_idx(level)
             src, flip = nttmod.galois_perm_coeff(p.log_n, g)
@@ -206,7 +393,7 @@ class CkksContext:
                 self.ntt.tabs(qp)[0])
             swk = self.gen_switching_key(self.ntt.ntt(s_g, qp), level,
                                          seed=self._key_seed(key))
-            self.switching_keys[key] = swk
+            self._swk_cache.put(key, swk)
         return swk
 
     def rot_key(self, k: int, level: int) -> SwitchingKey:
@@ -217,18 +404,31 @@ class CkksContext:
 
         Pointwise, φ(d)·k = φ(d · φ⁻¹(k)): the hoisted inner product then
         reads the shared unpermuted digits, and only the accumulator pair
-        is permuted per rotation, not the β digits."""
+        is permuted per rotation, not the β digits.  It shares the plain
+        key's seed and carries the permutation, so a compressed one
+        regenerates its d1 permuted.  A plain key made here for its twin
+        hands its first draw on, permuted, as the twin's memo: a plain key
+        that only seeds a twin holds no memo."""
         p = self.params
         g = g % (2 * p.n)
         key = ("galh", g, level)
-        swk = self.switching_keys.get(key)
+        swk = self._swk_cache.get(key)
         if swk is None:
+            fresh = ("gal", g, level) not in self._swk_cache
             base = self.galois_key(g, level)
             perm_inv = self.galois_perm(pow(g, -1, 2 * p.n))
-            swk = SwitchingKey(nttmod.apply_galois_ntt(base.d0, perm_inv),
-                               nttmod.apply_galois_ntt(base.d1, perm_inv),
-                               level)
-            self.switching_keys[key] = swk
+            held = base.d1 if base.d1 is not None else base.d1_cache
+            d1 = None if held is None else nttmod.apply_galois_ntt(held,
+                                                                   perm_inv)
+            d0 = nttmod.apply_galois_ntt(base.d0, perm_inv)
+            if base.d1 is None:
+                swk = SwitchingKey(d0, None, level, seed=base.seed,
+                                   d1_cache=d1, perm=perm_inv)
+            else:
+                swk = SwitchingKey(d0, d1, level, seed=base.seed, perm=perm_inv)
+            if fresh:
+                self._swk_cache.forget(base)
+            self._swk_cache.put(key, swk)
         return swk
 
     def galois_perm(self, g: int) -> torch.Tensor:
@@ -292,7 +492,8 @@ class CkksContext:
     def keyswitch(self, c1: torch.Tensor, level: int, swk: SwitchingKey):
         if swk.level != level:
             raise ValueError(f"key of level {swk.level} used at level {level}")
-        return self._ks_core(self._decompose(c1, level), swk.d0, swk.d1, level)
+        return self._ks_core(self._decompose(c1, level), swk.d0,
+                             self.swk_d1(swk), level)
 
     # ------------------------------------------------------------------
     # evaluator: arithmetic
@@ -495,8 +696,8 @@ class CkksContext:
             g = nttmod.rot_to_galois(k, p.log_n)
             swk = self.galois_key_hoisted(g, lvl)
             perm = self.galois_perm(g)
-            ks0, ks1 = self._ks_core(digits_ntt, swk.d0, swk.d1, lvl,
-                                     input_ntt=True)
+            ks0, ks1 = self._ks_core(digits_ntt, swk.d0, self.swk_d1(swk),
+                                     lvl, input_ntt=True)
             out[k] = Ciphertext(
                 nttmod.apply_galois_ntt(mm.add_mod(a.c0, ks0, q), perm),
                 nttmod.apply_galois_ntt(ks1, perm), level=lvl, scale=a.scale)
@@ -522,7 +723,7 @@ class CkksContext:
             g = nttmod.rot_to_galois(k, p.log_n)
             swk = self.galois_key_hoisted(g, lvl)
             perm = self.galois_perm(g)
-            a0, a1 = self._ks_core(digits_ntt, swk.d0, swk.d1, lvl,
+            a0, a1 = self._ks_core(digits_ntt, swk.d0, self.swk_d1(swk), lvl,
                                    input_ntt=True, lazy=True)
             out[k] = (nttmod.apply_galois_ntt(a.c0, perm),
                       nttmod.apply_galois_ntt(a0, perm),
@@ -561,8 +762,8 @@ class CkksContext:
         qp_q = self.ntt.tabs(p.qp_idx(lvl))[0]
         c0p = nttmod.apply_galois_ntt(c0, perm)
         c1p = nttmod.apply_galois_ntt(c1, perm)
-        a0, a1 = self._ks_core(self._decompose(c1p, lvl), swk.d0, swk.d1, lvl,
-                               lazy=True)
+        a0, a1 = self._ks_core(self._decompose(c1p, lvl), swk.d0,
+                               self.swk_d1(swk), lvl, lazy=True)
         return (mm.add_mod(aq0, c0p, self._q(lvl)), mm.add_mod(ap0, a0, qp_q),
                 mm.add_mod(ap1, a1, qp_q))
 

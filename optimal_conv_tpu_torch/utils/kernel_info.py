@@ -8,7 +8,9 @@ memory that ``nvcc -Xptxas -v`` reports and the opcode mix of its SASS,
 and the 32-bit integer instructions of one NTT butterfly and of one
 Montgomery product (single and chained): the SASS of a probe kernel that
 loads (u, v, w), does the arithmetic with ``csrc/modarith.cuh`` and
-stores, less the SASS of the same kernel without the arithmetic.
+stores, less the SASS of the same kernel without the arithmetic; and
+the same for one residue of a regenerated key half (``d1``: four
+Threefry-2x32 words and two Montgomery products, ``csrc/threefry.cuh``).
 ``chip_smoke.py`` turns that count into the kernels' arithmetic bound.
 For K1 it also prints the whole kernel's count per element, index
 arithmetic and loads included (``mont_kernel_instructions``).
@@ -30,6 +32,7 @@ from ..core import cuda_lib, mont_kernel
 PROBE = r"""
 #include <cstdint>
 #include "modarith.cuh"
+#include "threefry.cuh"
 using namespace optconv;
 extern "C" __global__ void probe_copy(uint64_t* x, const uint64_t* w,
                                       uint64_t q, uint64_t qi) {
@@ -65,6 +68,13 @@ extern "C" __global__ void probe_mul2(uint64_t* x, const uint64_t* w,
   const int i = threadIdx.x;
   const uint64_t u = x[i], v = x[i + 1024], ww = w[i];
   x[i] = u; x[i + 1024] = mont_mul(mont_mul_lazy(v, ww, q, qi), u, q, qi);
+  x[i + 2048] = ww + q + qi;
+}
+extern "C" __global__ void probe_d1(uint64_t* x, const uint64_t* w,
+                                    uint64_t q, uint64_t qi) {
+  const int i = threadIdx.x;
+  const uint64_t u = x[i], v = x[i + 1024], ww = w[i];
+  x[i] = u; x[i + 1024] = uniform_residue((uint32_t)ww, v, u, q, qi, ww, u);
   x[i + 2048] = ww + q + qi;
 }
 """
@@ -123,10 +133,19 @@ def int_instructions(ops: collections.Counter) -> int:
 
 
 def butterfly_instructions() -> dict:
-    """32-bit integer-pipe instructions of one forward butterfly, one
-    inverse butterfly, one Montgomery product and one chained product
-    (the first lazily reduced, as K1 does it), from the probe kernels'
-    SASS."""
+    """32-bit integer instructions of one forward butterfly, one inverse
+    butterfly, one Montgomery product, one chained product (the first
+    lazily reduced, as K1 does it) and one residue of a regenerated key
+    half (``d1``), from the probe kernels' SASS.
+
+    ``issue_slots`` is what bounds their time: the IMAD family issues on
+    the FMA pipe and every other integer opcode on the integer ALU pipe,
+    64 lanes an SM each, and an SM issues at most 128 thread-instructions
+    a clock (one warp instruction per clock in each of its four
+    partitions), so an SM needs at least max(alu, fma, all / 2) clocks per
+    64 threads' worth.  Counting all at 64 lanes overstated the bound: on
+    an H100 SXM the ``d1_regen`` kernel ran in 0.80 of it (347
+    instructions a residue, 224 of them on the ALU pipe)."""
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "probe.cu")
         with open(src, "w") as f:
@@ -136,10 +155,13 @@ def butterfly_instructions() -> dict:
         ops = sass_opcodes(cubin)
     base = int_instructions(ops["probe_copy"])
     out = {}
-    for name in ("fwd", "inv", "mul", "mul2"):
+    for name in ("fwd", "inv", "mul", "mul2", "d1"):
         mix = ops[f"probe_{name}"] - ops["probe_copy"]
+        int32 = int_instructions(ops[f"probe_{name}"]) - base
+        fma = sum(n for op, n in mix.items() if op.startswith("IMAD"))
         out[name] = dict(
-            int32=int_instructions(ops[f"probe_{name}"]) - base,
+            int32=int32, fma_pipe=fma, alu_pipe=int32 - fma,
+            issue_slots=max(int32 - fma, fma, int32 / 2),
             mix={op: n for op, n in sorted(mix.items())
                  if not _NOT_INT.match(op)})
     return out

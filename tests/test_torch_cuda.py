@@ -17,8 +17,10 @@ import torch
 from optimal_conv_tpu_torch.ckks.context import CkksContext, SwitchingKey
 from optimal_conv_tpu_torch.ckks.params import boot_params, mini_boot_params
 from optimal_conv_tpu_torch.core import modmath as mm
-from optimal_conv_tpu_torch.core import mont_kernel, ntt_kernel
-from optimal_conv_tpu_torch.core.ntt import NttContext, _ntt_fwd, _ntt_inv
+from optimal_conv_tpu_torch.core import d1_kernel, mont_kernel, ntt_kernel
+from optimal_conv_tpu_torch.core import threefry
+from optimal_conv_tpu_torch.core.ntt import (NttContext, _ntt_fwd, _ntt_inv,
+                                             galois_perm_ntt, rot_to_galois)
 
 pytestmark = pytest.mark.cuda
 
@@ -123,6 +125,84 @@ def test_mont_mul2_kernel_equals_plain(dev, case):
     assert mont_kernel.STATS.launches == 1
     assert mont_kernel.STATS.plain_calls == 0
     assert torch.equal(got, mm.mont_mul2_plain(a, b, c, q, qinv))
+
+
+@pytest.fixture(scope="module")
+def tables16(dev):
+    """The fork's logN-16 chain's NTT tables on the card."""
+    p = boot_params(16)
+    return p, NttContext(p.moduli, p.log_n, dev)
+
+
+@pytest.mark.parametrize("permuted", [False, True], ids=["plain_key", "galh"])
+@pytest.mark.parametrize("level", [27, 0])
+def test_d1_regen_kernel_equals_plain(dev, tables16, level, permuted):
+    """A key's uniform half at [6,33,N] (level 27) and [1,6,N] (level 0),
+    unpermuted and permuted by φ_g⁻¹: one launch, equal to the plain
+    draw residue for residue (max_abs_err 0), on a seed above 2^32."""
+    p, ntt = tables16
+    qp = p.qp_idx(level)
+    beta = len(p.digits(level))
+    assert (beta, len(qp)) == ((6, 33) if level else (1, 6))
+    perm = None
+    if permuted:
+        g_inv = pow(rot_to_galois(3, p.log_n), -1, 2 * p.n)
+        perm = torch.from_numpy(galois_perm_ntt(p.log_n, g_inv).copy()).to(dev)
+    tabs = ntt.tabs(qp)
+    d1_kernel.STATS.reset()
+    got = threefry.uniform_mont((1 << 40) + level, beta, *tabs, p.n, perm)
+    assert (d1_kernel.STATS.launches, d1_kernel.STATS.plain_calls) == (1, 0)
+    want = threefry.uniform_mont_plain((1 << 40) + level, beta, *tabs, p.n,
+                                       perm)
+    assert got.shape == (beta, len(qp), p.n)
+    assert torch.equal(got, want)
+    q = tabs[0].reshape(1, -1, 1)
+    assert bool((got >= 0).all()) and bool((got < q).all())
+
+
+def test_d1_regen_kernel_rejects_bad_input(dev, tables16):
+    p, ntt = tables16
+    tabs = ntt.tabs(p.qp_idx(0))
+    with pytest.raises(TypeError):
+        d1_kernel.d1_regen_cuda(1, 1, *tabs, p.n,
+                                torch.arange(p.n, dtype=torch.int32, device=dev))
+    with pytest.raises(TypeError):
+        d1_kernel.d1_regen_cuda(1, 1, tabs[0], tabs[1].cpu(), *tabs[2:], p.n)
+    with pytest.raises(ValueError):
+        d1_kernel.d1_regen_cuda(1, 1, *[t.cpu() for t in tabs], p.n)
+
+
+def test_compressed_keys_on_card_equal_whole_keys(dev):
+    """On the card, a context with seed-compressed keys (d1 regenerated by
+    the kernel) and one with every key stored whole: the same keys, and
+    rotations, hoisted rotations and ct × ct products equal residue for
+    residue; the whole key's d1 equals the CPU context's (the draw does
+    not depend on the device)."""
+    p = boot_params(12)
+    whole = CkksContext(p, dev, seed=9, compress_keys=False)
+    comp = CkksContext(p, dev, seed=9, compress_keys=True)
+    cpu = CkksContext(p, "cpu", seed=9, compress_keys=False)
+    rng = np.random.default_rng(9)
+    x = rng.uniform(-1, 1, p.slots)
+    ct = whole.encrypt(whole.encoder.encode_slots(x, p.scale, 15))
+    d1_kernel.STATS.reset()
+    for k in (1, 5):
+        got, want = comp.rotate(ct, k), whole.rotate(ct, k)
+        assert torch.equal(got.c0, want.c0) and torch.equal(got.c1, want.c1)
+    rots = [1, 2, 3]
+    got, want = comp.rotate_hoisted(ct, rots), whole.rotate_hoisted(ct, rots)
+    for k in rots:
+        assert torch.equal(got[k].c0, want[k].c0)
+        assert torch.equal(got[k].c1, want[k].c1)
+    a, b = comp.mul_ct(ct, ct), whole.mul_ct(ct, ct)
+    assert torch.equal(a.c0, b.c0) and torch.equal(a.c1, b.c1)
+    assert d1_kernel.STATS.launches > 0 and d1_kernel.STATS.plain_calls == 0
+    for tag, k in comp.switching_keys.items():
+        assert k.d1 is None
+        assert torch.equal(k.d0, whole.switching_keys[tag].d0)
+        assert torch.equal(comp.swk_d1(k), whole.switching_keys[tag].d1)
+    rk = whole.rot_key(5, 15)
+    assert torch.equal(rk.d1.cpu(), cpu.rot_key(5, 15).d1)
 
 
 @pytest.mark.parametrize("log_n", [3, 8, 9, 10, 11, 12, 13, 14, 15, 16])

@@ -120,3 +120,90 @@ def test_key_archive_read_by_jax(tmp_path, tctx):
                                   jax_perm(p.log_n, g_inv))
         else:
             assert got.perm is None
+
+
+def _from_jax(ctx, jct):
+    return interop.ciphertext_from_arrays(ctx, np.asarray(jct.c0),
+                                          np.asarray(jct.c1), jct.level,
+                                          jct.scale)
+
+
+def _same_as_jax(tct, jct):
+    assert (tct.level, tct.scale) == (jct.level, jct.scale)
+    assert np.array_equal(interop.to_numpy(tct.c0), np.asarray(jct.c0))
+    assert np.array_equal(interop.to_numpy(tct.c1), np.asarray(jct.c1))
+
+
+def test_compressed_jax_archive_read_by_the_port(tmp_path, monkeypatch):
+    """A JAX context with seed-compressed keys (OPTCONV_COMPRESS_KEYS=1 for
+    this test only, as tests/test_key_cache.py's fixture sets it) writes
+    save_keys; the port reads d0, seed and permutation, regenerates d1,
+    and its rotation, hoisted rotation and ct × ct product on those keys
+    equal JAX's bit for bit, making no key."""
+    monkeypatch.setenv("OPTCONV_COMPRESS_KEYS", "1")
+    p = jax_tiny(log_n=8, levels=3)
+    jctx = JaxContext(p, seed=SEED + 2)
+    lvl = p.max_level
+    msg = np.random.default_rng(4).uniform(-1, 1, p.n)
+    jct = jctx.encrypt(jctx.encoder.encode_coeffs(msg, p.scale, lvl))
+    jrot = jctx.rotate(jct, ROTS[0])
+    jhoist = jctx.rotate_hoisted(jct, list(ROTS))
+    jmul = jctx.mul_ct(jct, jct)
+    assert all(k.d1 is None for k in jctx._swk_cache.d.values())
+    assert {t[0] for t in jctx._swk_cache.d} == {"rlk", "gal", "galh"}
+    path = str(tmp_path / "jax_keys.npz")
+    jser.save_keys(path, jctx)
+
+    tctx = CkksContext(tiny_params(log_n=8, levels=3), CPU, seed=SEED + 3)
+    assert interop.load_keys(path, tctx) == len(jctx._swk_cache.d)
+    held = dict(tctx.switching_keys)
+    for tag, jk in jctx._swk_cache.d.items():
+        tk = tctx.switching_keys[tag]
+        assert tk.d1 is None and tk.seed == jk.seed
+        assert np.array_equal(interop.to_numpy(tctx.swk_d1(tk)),
+                              np.asarray(jctx.swk_d1(jk)))
+    ct = _from_jax(tctx, jct)
+    _same_as_jax(tctx.rotate(ct, ROTS[0]), jrot)
+    hoisted = tctx.rotate_hoisted(ct, list(ROTS))
+    for r in ROTS:
+        _same_as_jax(hoisted[r], jhoist[r])
+    _same_as_jax(tctx.mul_ct(ct, ct), jmul)
+    assert tctx.switching_keys.keys() == held.keys(), "the port made a key"
+
+
+def test_compressed_port_archive_read_by_jax(tmp_path):
+    """The port's compressed keys written by save_keys (d0, seed, the
+    "galh" permutation, no d1) and read by JAX's load_keys: JAX
+    regenerates the port's d1 bit for bit, and its rotations and product
+    on those keys equal the port's."""
+    p = tiny_params(log_n=8, levels=3)
+    tctx = CkksContext(p, CPU, seed=SEED + 4, compress_keys=True)
+    lvl = p.max_level
+    msg = np.random.default_rng(5).uniform(-1, 1, p.n)
+    ct = tctx.encrypt(tctx.encoder.encode_coeffs(msg, p.scale, lvl))
+    trot = tctx.rotate(ct, ROTS[0])
+    thoist = tctx.rotate_hoisted(ct, list(ROTS))
+    tmul = tctx.mul_ct(ct, ct)
+    assert {t[0] for t in tctx.switching_keys} == {"rlk", "gal", "galh"}
+    path = str(tmp_path / "port_keys.npz")
+    interop.save_keys(path, tctx)
+
+    jctx = JaxContext(jax_tiny(log_n=8, levels=3), seed=SEED + 4)
+    assert jser.load_keys(path, jctx) == len(tctx.switching_keys)
+    assert list(jctx._swk_cache.d) == list(tctx.switching_keys)
+    for tag, tk in tctx.switching_keys.items():
+        jk = jctx._swk_cache.d[tag]
+        assert jk.d1 is None and jk.seed == tk.seed
+        assert (jk.perm is not None) == (tag[0] == "galh")
+        assert np.array_equal(np.asarray(jk.d0), interop.to_numpy(tk.d0))
+        assert np.array_equal(np.asarray(jctx.swk_d1(jk)),
+                              interop.to_numpy(tctx.swk_d1(tk)))
+    jct = jctx.encrypt(jctx.encoder.encode_coeffs(msg, p.scale, lvl))
+    _same_as_jax(ct, jct)
+    held = set(jctx._swk_cache.d)
+    _same_as_jax(trot, jctx.rotate(jct, ROTS[0]))
+    jhoist = jctx.rotate_hoisted(jct, list(ROTS))
+    for r in ROTS:
+        _same_as_jax(thoist[r], jhoist[r])
+    _same_as_jax(tmul, jctx.mul_ct(jct, jct))
+    assert set(jctx._swk_cache.d) == held, "JAX made a key"

@@ -34,7 +34,9 @@ MODULES = ["optimal_conv_tpu_torch", "optimal_conv_tpu_torch.cli",
            "optimal_conv_tpu_torch.models.resnet",
            "optimal_conv_tpu_torch.models.imagenet",
            "optimal_conv_tpu_torch.utils.timing",
-           "optimal_conv_tpu_torch.core.rns"]
+           "optimal_conv_tpu_torch.core.rns",
+           "optimal_conv_tpu_torch.core.threefry",
+           "optimal_conv_tpu_torch.core.d1_kernel"]
 
 # The suite runs in several pytest workers at once; PyTorch's intra-op
 # threads on top of them oversubscribe the cores (a 4 s test took 490 s
