@@ -104,7 +104,14 @@ the port's main path at logN=16 on the Go fork's modulus chain:
     logN 16, the default cache budgets) and a starved cache (half the
     layer's d0 bytes resident, no memo budget), each to the layer bars,
     the three outputs equal residue for residue; warm wall, device ms,
-    launches and key bytes by tier (d0, stored d1, memos) for each.
+    launches and key bytes by tier (d0, stored d1, memos) for each;
+  * the limb-sharded layer step (``sharding_path``, after ``keys_path``):
+    ``parallel/sharding.py``'s ct×pt → Galois → key switch → rescale at
+    levels 27 and 3 on a fresh context, in process at world size 1 over
+    NCCL, then as 2 processes (tp 2) and 4 (tp 4, and dp 2 × tp 2 on a
+    batch of 4) on the one card over gloo, every output equal residue for
+    residue to the single-device ``rescale(rotate(mul_plain))``; warm
+    walls by rank, rank 0's device ms, bytes by collective, launches.
 
 The whole-model paths run under the default key settings: every path
 makes its keys seed-compressed at logN 16, and each ``memory`` line
@@ -146,20 +153,24 @@ Without CUDA it fails at once.
 
 from __future__ import annotations
 
+import hashlib
 import inspect
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from optimal_conv_tpu_torch import cli
 from optimal_conv_tpu_torch.ckks import bootstrap as boot
 from optimal_conv_tpu_torch.ckks.context import GIB, CkksContext
 from optimal_conv_tpu_torch.ckks.params import boot_params
+from optimal_conv_tpu_torch.ckks.types import Ciphertext
 from optimal_conv_tpu_torch.core import (cuda_lib, d1_kernel, mont_kernel,
                                          ntt_kernel, threefry)
 from optimal_conv_tpu_torch.core import modmath as mm
@@ -179,6 +190,7 @@ from optimal_conv_tpu_torch.ops import repack as rp
 from optimal_conv_tpu_torch.ops.debug import precision_stats
 from optimal_conv_tpu_torch.ops.pipeline import LayerMaps, eval_conv_bn_relu
 from optimal_conv_tpu_torch.ops.relu import eval_relu, relu_np
+from optimal_conv_tpu_torch.parallel import sharding as shd
 from optimal_conv_tpu_torch.utils import kernel_info, mont_bench
 from optimal_conv_tpu_torch.utils.timing import cuda_ms, cuda_ms_cold
 
@@ -674,7 +686,9 @@ def where_time_goes(dev, card):
 def _profile_groups(fn, dev):
     """One call of fn() under ``torch.profiler``: → (wall ms, device
     kernel ms, {group: {launches, ms}}) with the device kernels grouped
-    into K1, K2, K3, d1_regen and PyTorch's own.  Reads the profiler's raw events
+    into K1, K2, K3, d1_regen and PyTorch's own, and the copies and
+    memsets of the runtime ("copies": gloo stages each collective through
+    host memory with them).  Reads the profiler's raw events
     (``prof.profiler.kineto_results``, private; checked on torch
     2.11.0+cu128): building its Python event tree costs about 15 s a
     layer.  The first call holds the raw count of device events against
@@ -701,7 +715,9 @@ def _profile_groups(fn, dev):
                or "ntt_pass<(bool)1>" in name else
                "ntt_pass<forward>" if "ntt_pass" in name else
                "mont_mul_kernel" if "mont_mul" in name else
-               "d1_regen_kernel" if "d1_regen" in name else "torch kernels")
+               "d1_regen_kernel" if "d1_regen" in name else
+               "copies" if name.startswith(("Memcpy", "Memset")) else
+               "torch kernels")
         g = groups.setdefault(key, [0, 0])
         g[0] += 1
         g[1] += ev.duration_ns()
@@ -1519,6 +1535,245 @@ def keys_path(dev, card) -> dict:
     return counts
 
 
+SHARD_SEED = 21
+SHARD_LOG_N = 16
+SHARD_LEVELS = (27, 3)
+SHARD_ROT = 1
+# (world, backend, [(mesh, batch)]): in process over NCCL, then 2 and 4
+# processes on the one card over gloo (NCCL refuses two ranks on a device)
+SHARD_RUNS = ((1, "nccl", (("world 1", 1),)),
+              (2, "gloo", (("tp 2", 1),)),
+              (4, "gloo", (("tp 4", 1), ("dp 2 x tp 2", 4))))
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def sharding_inputs(ctx) -> dict:
+    """{level: (ct, pt)} of the sharding path, drawn in one order from the
+    context's seed: the same on every process of one seed."""
+    p = ctx.params
+    rng = np.random.default_rng(SHARD_SEED)
+    out = {}
+    for level in SHARD_LEVELS:
+        ct = ctx.encrypt(ctx.encoder.encode_coeffs(rng.uniform(-1, 1, p.n),
+                                                   p.scale, level))
+        pt = ctx.encoder.encode_coeffs(rng.uniform(-1, 1, p.n), p.scale, level)
+        out[level] = (ct, pt)
+    return out
+
+
+def _shard_mesh(kind: str) -> shd.Mesh:
+    return shd.build_mesh((2, 2)) if kind == "dp 2 x tp 2" else shd.make_mesh()
+
+
+def _sharded_case(ctx, mesh, level, batch, ct, pt, swk, profile) -> dict:
+    """One mesh at one level: the step's launches, the digests of the
+    gathered output (one pair an element of the batch), three warm walls
+    (ranks aligned by a barrier before each), and, with `profile`, the
+    device ms of one step on this rank."""
+    dev = ctx.device
+    step = shd.build_sharded_layer_step(ctx, level, mesh)
+    lay = shd.batch_sharding(mesh, level + 1, batch)
+    shape = (batch,) + tuple(ct.c0.shape)
+    args = (lay.take(ct.c0.expand(shape), mesh),
+            lay.take(ct.c1.expand(shape), mesh), step.shard_pt(pt.poly),
+            ctx.galois_perm(rot_to_galois(SHARD_ROT, ctx.params.log_n)),
+            *step.shard_key(swk))
+
+    def run():
+        return step(*args)
+
+    before = [s.launches for s in STATS]
+    o0, o1 = run()
+    _sync(dev)
+    launches = {s.name: s.launches - b for s, b in zip(STATS, before)}
+    whole = shd.gather_ct(Ciphertext(o0, o1, level=level - 1), mesh,
+                          step.out_layout(lay))
+    check(tuple(whole.c0.shape) == (batch, level, ctx.params.n),
+          f"sharding path: output {tuple(whole.c0.shape)}")
+    digests = [[_digest(whole.c0[i]), _digest(whole.c1[i])]
+               for i in range(batch)]
+    walls = []
+    for _ in range(3):
+        dist.barrier()
+        _sync(dev)
+        t0 = time.perf_counter()
+        run()
+        _sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    dist.barrier()
+    device_ms = groups = None
+    if profile:
+        _, device_ms, groups = _profile_groups(run, dev)
+    else:
+        run()
+    _sync(dev)
+    return dict(shard_in=list(args[0].shape), shard_out=list(o0.shape),
+                launches=launches, digests=digests, wall_ms=walls,
+                device_ms=device_ms, groups=groups,
+                bytes={k: list(v) for k, v in step.bytes.items()})
+
+
+def _path_counts(what: str, dev, need=STATS) -> dict:
+    """This process's counters since they were zeroed: on the card every
+    kernel of `need` launched (a path that makes switching keys launches
+    d1_regen, every key's uniform half being drawn by it; a warm run on
+    made keys need not) and no plain version ran."""
+    _sync(dev)
+    if dev.type == "cuda":
+        for s in need:
+            check(s.launches > 0, f"{s.name}: no launch on the {what}")
+        for s in STATS:
+            check(s.plain_calls == 0, f"{s.name}: plain version ran on the {what}")
+    return dict(launches={s.name: s.launches for s in STATS},
+                by_rows={s.name: {str(r): c for r, c in sorted(s.by_rows.items())}
+                         for s in STATS})
+
+
+def sharding_rank(rank: int, kinds, device: str, log_n: int) -> dict:
+    """One rank of a sharding-path world (spawned by ``shd.run_ranks``, the
+    kernels built by the parent): a fresh context of the path's seed, the
+    Galois keys made by rank 0 and broadcast (every other rank draws its
+    d1 from the broadcast seed), each mesh of `kinds` at each level;
+    rank 0 profiles.  Counters from the start; every kernel must launch."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        cuda_lib.lib()
+    for s in STATS:
+        s.reset()
+    ctx = CkksContext(boot_params(log_n), dev, seed=SHARD_SEED)
+    inputs = sharding_inputs(ctx)
+    g = rot_to_galois(SHARD_ROT, ctx.params.log_n)
+    keys = {lv: shd.share_galois_key(ctx, g, lv) for lv in SHARD_LEVELS}
+    cases = {}
+    for kind, batch in kinds:
+        mesh = _shard_mesh(kind)
+        for lv in SHARD_LEVELS:
+            cases[f"{kind}, level {lv}"] = _sharded_case(
+                ctx, mesh, lv, batch, *inputs[lv], keys[lv],
+                profile=rank == 0 and dev.type == "cuda")
+    return dict(cases=cases, counts=_path_counts(f"sharding path rank {rank}",
+                                                 dev))
+
+
+def _kernel_ms(device_ms, groups):
+    """Device ms without the runtime's copies (None where not profiled)."""
+    if device_ms is None:
+        return None
+    return device_ms - groups.get("copies", {}).get("ms", 0.0)
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts["launches"].items():
+        total["launches"][name] = total["launches"].get(name, 0) + n
+    for name, rows in counts["by_rows"].items():
+        mine = total["by_rows"].setdefault(name, {})
+        for r, c in rows.items():
+            mine[r] = mine.get(r, 0) + c
+
+
+def sharding_path(dev, card) -> dict:
+    """Phase 16, after ``keys_path``: the limb-sharded layer step
+    (``parallel/sharding.py``) on a fresh ``boot_params(16)`` context under
+    the default key settings, at levels 27 and 3: in process at world
+    size 1 over NCCL, then as 2 processes (tp 2) and 4 (tp 4, and dp 2 ×
+    tp 2 on a batch of 4) on the one card over gloo.  Every output
+    element must equal the single-device ``rescale(rotate(mul_plain(ct,
+    pt), 1))`` residue for residue (by digest across processes).  Prints
+    warm walls by rank, rank 0's device ms, the bytes of each collective
+    and each step's launches.  Gloo stages every collective through host
+    memory: those walls time host staging, not NVLink."""
+    cuda_lib.lib()
+    p = boot_params(SHARD_LOG_N)
+    ctx = CkksContext(p, dev, seed=SHARD_SEED)
+    inputs = sharding_inputs(ctx)
+    want, single = {}, {}
+    for lv, (ct, pt) in inputs.items():
+        def ref(ct=ct, pt=pt):
+            return ctx.rescale(ctx.rotate(ctx.mul_plain(ct, pt), SHARD_ROT))
+        out = ref()
+        want[lv] = [_digest(out.c0), _digest(out.c1)]
+        walls = [_wall_ms(ref, dev, iters=1) for _ in range(3)]
+        _, busy, groups = _profile_groups(ref, dev)
+        single[lv] = dict(wall_ms=walls, device_ms=busy, groups=groups,
+                          launches=_counts_of(ref, dev))
+        print(f"sharding path, single device, level {lv}, {card}: "
+              + json.dumps(single[lv]))
+    total = dict(launches={}, by_rows={})
+    results = {}
+    for world, backend, kinds in SHARD_RUNS:
+        t0 = time.perf_counter()
+        if world == 1:
+            for s in STATS:
+                s.reset()
+            with tempfile.TemporaryDirectory() as d:
+                shd.init_distributed(f"file://{os.path.join(d, 'store')}", 1, 0,
+                                     backend)
+                try:
+                    check(dist.get_backend() == backend,
+                          f"sharding path: backend {dist.get_backend()}")
+                    g = rot_to_galois(SHARD_ROT, p.log_n)
+                    keys = {lv: shd.share_galois_key(ctx, g, lv)
+                            for lv in SHARD_LEVELS}
+                    mesh = _shard_mesh(kinds[0][0])
+                    cases = {f"{kinds[0][0]}, level {lv}": _sharded_case(
+                        ctx, mesh, lv, kinds[0][1], *inputs[lv], keys[lv], True)
+                        for lv in SHARD_LEVELS}
+                finally:
+                    dist.destroy_process_group()
+            # the keys were made for the reference: no d1 draw here
+            ranks = [dict(cases=cases, counts=_path_counts(
+                "sharding path (world 1)", dev, need=K123))]
+        else:
+            ranks = shd.run_ranks(sharding_rank, world,
+                                  (kinds, str(dev), SHARD_LOG_N),
+                                  backend=backend)
+        secs = time.perf_counter() - t0
+        for case in ranks[0]["cases"]:
+            lv = int(case.rsplit(" ", 1)[1])
+            got = [r["cases"][case] for r in ranks]
+            for r, c in enumerate(got):
+                check(all(d == want[lv] for d in c["digests"]),
+                      f"sharding path {case}, rank {r}: output differs from "
+                      "the single-device rescale(rotate(mul_plain))")
+            results[case] = dict(
+                world=world, backend=backend,
+                wall_ms_by_rank=[c["wall_ms"] for c in got],
+                device_ms_rank0=got[0]["device_ms"],
+                kernel_ms_rank0=_kernel_ms(got[0]["device_ms"], got[0]["groups"]),
+                device_single=single[lv]["device_ms"],
+                kernel_single=_kernel_ms(single[lv]["device_ms"],
+                                         single[lv]["groups"]),
+                groups_rank0=got[0]["groups"], bytes=got[0]["bytes"],
+                launches_rank0=got[0]["launches"],
+                limbs_by_rank=[[c["shard_in"][-2], c["shard_out"][-2]]
+                               for c in got])
+            print(f"sharding path {case} ({world} process(es), {backend}, "
+                  f"{card}): equal to the single device residue for residue "
+                  "on every rank; " + json.dumps(results[case]))
+        for r in ranks:
+            _add_counts(total, r["counts"])
+        print(f"sharding path: world {world} over {backend} took {secs:.1f} s "
+              f"(processes, contexts, keys, checks); launches by rank "
+              + json.dumps([r["counts"]["launches"] for r in ranks]))
+    print(f"sharding path launches (all ranks): {json.dumps(total['launches'])}")
+    for s in K123:
+        check(total["launches"][s.name] > 0, f"{s.name}: no launch on the "
+              "sharding path")
+    for s in STATS:
+        s.reset()
+    torch.cuda.empty_cache()
+    return total
+
+
 def resnet_path(dev, card):
     """Phase 11: ResNet-20 CIFAR-10 wide 1 at logN 16 through the runner,
     19 fused layers and the FC head, on 2 images, each encrypted argmax
@@ -2027,23 +2282,15 @@ def bl_path(ctx, dev, card, fam) -> dict:
 
 
 def _read_counts(path: str, dev, need=STATS) -> dict:
-    """The wrappers' counters after one path: every kernel of `need`
-    launched, no plain version called.  Then zeroed for the next path.
-    A path that makes switching keys launches d1_regen (every key's
-    uniform half is drawn by it); a warm run on made keys need not."""
-    torch.cuda.synchronize(dev)
-    counts = {s.name: (s.launches, s.plain_calls) for s in STATS}
-    by_rows = {s.name: {str(r): c for r, c in sorted(s.by_rows.items())}
-               for s in STATS}
-    print(f"{path} launches / plain calls: {counts}")
-    print(f"{path} launches by rows of the call: {json.dumps(by_rows)}")
-    for s in need:
-        check(s.launches > 0, f"{s.name}: no launch on the {path}")
-    for name, (launches, plain) in counts.items():
-        check(plain == 0, f"{name}: plain version ran on the {path}")
+    """The wrappers' counters after one path (``_path_counts``), printed,
+    then zeroed for the next path."""
+    counts = _path_counts(path, dev, need)
+    print(f"{path} launches / plain calls: "
+          + str({s.name: (s.launches, s.plain_calls) for s in STATS}))
+    print(f"{path} launches by rows of the call: {json.dumps(counts['by_rows'])}")
     for s in STATS:
         s.reset()
-    return dict(launches={k: v[0] for k, v in counts.items()}, by_rows=by_rows)
+    return counts
 
 
 def main() -> int:
@@ -2109,6 +2356,7 @@ def main() -> int:
     del ctx, fam, held, a, b
     torch.cuda.empty_cache()
     paths.update(keys_path(dev, card))
+    paths["sharding path"] = sharding_path(dev, card)
     paths["resnet path"] = resnet_path(dev, card)
     torch.cuda.empty_cache()
     paths["fast path"] = fast_path(dev, card)

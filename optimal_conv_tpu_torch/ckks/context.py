@@ -455,19 +455,25 @@ class CkksContext:
     def _mod_down(self, acc: torch.Tensor, level: int) -> torch.Tensor:
         """[..., l+1+P, N] QP accumulator → [..., l+1, N] on Q_level,
         divided by P and rounded (JAX: ``_mod_down_builder``)."""
-        p = self.params
-        idx = p.q_idx(level)
         nq = level + 1
+        acc_p = self.ntt.intt(acc[..., nq:, :], self.params.p_idx())
+        return self._mod_down_limbs(acc[..., :nq, :], acc_p, level,
+                                    self.params.q_idx(level))
+
+    def _mod_down_limbs(self, acc_q: torch.Tensor, acc_p: torch.Tensor,
+                        level: int, idx) -> torch.Tensor:
+        """The mod-down on the Q limbs `idx` (contiguous) of `level`:
+        acc_q [..., |idx|, N] (NTT domain), acc_p [..., |P|, N] all the P
+        rows in coefficient form → (acc_q − [acc_p]_idx)·P⁻¹."""
         qq, qqinv = self.ntt.tabs(idx)[:2]
-        pidx = p.p_idx()
-        acc_p = self.ntt.intt(acc[..., nq:, :], pidx)
-        ext = self.tables.extender(pidx, idx).extend(acc_p)
-        diff = mm.sub_mod(acc[..., :nq, :], self.ntt.ntt(ext, idx), qq)
-        return mm.mont_mul(diff, self.tables.p_inv_mont(level), qq, qqinv)
+        ext = self.tables.extender(self.params.p_idx(), idx).extend(acc_p)
+        diff = mm.sub_mod(acc_q, self.ntt.ntt(ext, idx), qq)
+        p_inv = self.tables.p_inv_mont(level)[idx[0]:idx[-1] + 1]
+        return mm.mont_mul(diff, p_inv, qq, qqinv)
 
     def _ks_core(self, digits: torch.Tensor, d0: torch.Tensor,
                  d1: torch.Tensor, level: int, input_ntt: bool = False,
-                 lazy: bool = False):
+                 lazy: bool = False, idx=None):
         """Digits [..., beta, l+1+P, N] × key → (ks0, ks1) on Q_level
         (JAX: ``_ks_core_builder``).
 
@@ -475,8 +481,10 @@ class CkksContext:
         rotations transform them once per ciphertext, not once per
         rotation); else they are coefficient-domain and transformed here.
         lazy: no mod-down; the [..., l+1+P, N] QP accumulators are
-        returned, and a caller that sums several divides by P once."""
-        qp = self.params.qp_idx(level)
+        returned, and a caller that sums several divides by P once.
+        idx: the limbs of the digits' and the key's rows (default
+        qp_idx(level); a limb-sharded step passes its own, lazy)."""
+        qp = self.params.qp_idx(level) if idx is None else idx
         q, qinv = self.ntt.tabs(qp)[:2]
         dig = digits if input_ntt else self.ntt.ntt(digits, qp)
         t0 = mm.mont_mul(dig, d0, q, qinv)
@@ -604,23 +612,28 @@ class CkksContext:
     def _rescale_poly(self, c: torch.Tensor, lvl: int) -> torch.Tensor:
         """[..., lvl+1, N] → [..., lvl, N]: (c − [c mod q_top]) / q_top
         with the centered remainder (JAX: ``_rescale_f``)."""
+        t = self.ntt.intt(c[..., lvl:, :], (lvl,))               # [..., 1, N]
+        return self._rescale_limbs(c[..., :lvl, :], t, lvl,
+                                   self.params.q_idx(lvl - 1))
+
+    def _rescale_limbs(self, c: torch.Tensor, t: torch.Tensor, lvl: int,
+                       idx) -> torch.Tensor:
+        """The rescale on the Q limbs `idx` (contiguous, below lvl): c
+        [..., |idx|, N], t [..., 1, N] the top limb in coefficient form."""
         p = self.params
         q_top = p.q_moduli[lvl]
-        idx = p.q_idx(lvl)
-        sub_idx = idx[:-1]
-        q, qinv, _, r1 = self.ntt.tabs(sub_idx)
-        key = ("rescale", lvl)
+        q, qinv, _, r1 = self.ntt.tabs(idx)
+        key = ("rescale", lvl, idx)
         qtop_mod = self._pt_cache.get(key)
         if qtop_mod is None:
-            qtop_mod = torch.tensor([q_top % qi for qi in p.q_moduli[:lvl]],
+            qtop_mod = torch.tensor([q_top % p.q_moduli[i] for i in idx],
                                     dtype=torch.int64, device=self.device)[:, None]
             self._pt_cache[key] = qtop_mod
-        t = self.ntt.intt(c[..., lvl:, :], (idx[-1],))          # [..., 1, N]
         red = mm.mont_mul(t, r1, q, qinv)                       # t mod q_i
         red = torch.where(t > q_top // 2, mm.sub_mod(red, qtop_mod, q), red)
-        red_ntt = self.ntt.ntt(red, sub_idx)
-        return mm.mont_mul(mm.sub_mod(c[..., :lvl, :], red_ntt, q),
-                           self.tables.qlast_inv_mont(lvl), q, qinv)
+        red_ntt = self.ntt.ntt(red, idx)
+        qlast_inv = self.tables.qlast_inv_mont(lvl)[idx[0]:idx[-1] + 1]
+        return mm.mont_mul(mm.sub_mod(c, red_ntt, q), qlast_inv, q, qinv)
 
     def drop_level(self, a: Ciphertext, levels: int) -> Ciphertext:
         if levels <= 0:

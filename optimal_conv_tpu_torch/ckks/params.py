@@ -138,10 +138,13 @@ class DeviceTables:
         return self._get(("ext", src, dst), lambda: rns.BasisExtender(
             [mods[i] for i in src], [mods[i] for i in dst], self.device))
 
-    def digit_extender(self, level: int):
+    def digit_extender(self, level: int, dst=None):
+        """The extender of every digit of `level` to the limbs `dst`
+        (default all of Q_level·P; a limb-sharded step asks for its own)."""
         p = self.params
-        return self._get(("dext", level), lambda: rns.DigitExtender(
-            p.digits(level), p.qp_idx(level), p.moduli, self.device))
+        dst = p.qp_idx(level) if dst is None else tuple(dst)
+        return self._get(("dext", level, dst), lambda: rns.DigitExtender(
+            p.digits(level), dst, p.moduli, self.device))
 
     def p_inv_mont(self, level: int) -> torch.Tensor:
         """P^{-1} mod q_i (Montgomery form) for the q-limbs of `level`: [l+1, 1]."""

@@ -268,6 +268,18 @@ def test_ntt_kernel_strided_input(dev, log_n, view):
     assert torch.equal(acc, keep)
 
 
+def test_sharded_step_dryrun_on_card(dev):
+    """The limb-sharded layer step at one rank on the card (no process
+    group: its collectives are the identity) equals the single-device
+    rescale(rotate(mul_plain)) residue for residue, through the kernels."""
+    from optimal_conv_tpu_torch.parallel import sharding
+    for s in (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV):
+        s.reset()
+    assert sharding.dryrun(1, log_n=12, device=dev) == {}
+    for s in (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV):
+        assert s.launches > 0 and s.plain_calls == 0
+
+
 def test_kernels_reject_bad_input(dev):
     mods = boot_params(10).moduli[:2]
     q, qinv, _, _ = mm.limb_tables(mods, dev)
