@@ -111,7 +111,15 @@ the port's main path at logN=16 on the Go fork's modulus chain:
     NCCL, then as 2 processes (tp 2) and 4 (tp 4, and dp 2 × tp 2 on a
     batch of 4) on the one card over gloo, every output equal residue for
     residue to the single-device ``rescale(rotate(mul_plain))``; warm
-    walls by rank, rank 0's device ms, bytes by collective, launches.
+    walls by rank, rank 0's device ms, bytes by collective, launches;
+  * the limb-sharded fused layer (``sharded_layer_path``, after
+    ``sharding_path``): the block-1 ``Conv_sparse`` layer at tp 2 and tp
+    4 and the ``StrConv_sparse`` transition at tp 4 on
+    ``parallel/limbs.LimbShardedContext`` ranks sharing the one card over
+    gloo, every rank's gathered output equal to the single device's
+    (which is held to the layer bars), then ``dryrun_fused_layer`` on 2
+    ranks; walls by rank, rank 0's device ms, the collectives of one
+    layer, limbs by stage, key bytes and peak by rank.
 
 The whole-model paths run under the default key settings: every path
 makes its keys seed-compressed at logN 16, and each ``memory`` line
@@ -136,7 +144,8 @@ wrapper's host time per call; K2/K3 at the conv's shapes and at the 84,
 the bootstrap's shapes (the digits and inner products of levels 27, 23, 3
 and 2); d1_regen at the key halves of levels 27 ([6,33,N]) and 0
 ([1,6,N]), unpermuted and permuted, against its plain version (every
-residue equal).  A path that makes keys must launch d1_regen (each
+residue equal), and a tp-4 rank's rows of the level-27 key drawn alone
+(``rows``) against its plain version and the whole draw's rows.  A path that makes keys must launch d1_regen (each
 key's uniform half is drawn by it); a warm run on made keys need not.
 After the
 paths one warm conv at 16²×256 is split into host-side kernel encoding
@@ -190,7 +199,10 @@ from optimal_conv_tpu_torch.ops import repack as rp
 from optimal_conv_tpu_torch.ops.debug import precision_stats
 from optimal_conv_tpu_torch.ops.pipeline import LayerMaps, eval_conv_bn_relu
 from optimal_conv_tpu_torch.ops.relu import eval_relu, relu_np
+from optimal_conv_tpu_torch.models.plain import NUM_BLOCKS
 from optimal_conv_tpu_torch.parallel import sharding as shd
+from optimal_conv_tpu_torch.parallel.limbs import (LimbPlacement,
+                                                   LimbShardedContext)
 from optimal_conv_tpu_torch.utils import kernel_info, mont_bench
 from optimal_conv_tpu_torch.utils.timing import cuda_ms, cuda_ms_cold
 
@@ -529,7 +541,9 @@ def check_d1(dev, p, card):
     halves of level 27 ([6,33,N], the bootstrap's CtoS keys) and of level
     0 ([1,6,N], the conv's pack keys), each unpermuted (a Galois or
     relinearisation key) and permuted by φ_g⁻¹ (a pre-permuted hoisting
-    key); each equal to the plain draw, then timed beside its bound."""
+    key); each equal to the plain draw, then timed beside its bound.
+    Then a limb-sharded rank's rows of the level-27 key, drawn alone at
+    their counters, against the plain version and the whole draw."""
     n = p.n
     ntt = NttContext(p.moduli, p.log_n, dev)
     g_inv = pow(rot_to_galois(5, p.log_n), -1, 2 * n)
@@ -574,6 +588,48 @@ def check_d1(dev, p, card):
                   f"{card.slots['d1']} issue slots a residue, "
                   f"{card.int32['d1']} instructions); max_abs_err "
                   f"{max_err(got, want)}")
+    # a tp-4 rank's rows of the level-27 key (LimbPlacement: rank 1 holds
+    # 7 Q limbs and 1 P limb), drawn alone at their counters in the key
+    level, tp, rank = 27, 4, 1
+    qp = p.qp_idx(level)
+    beta = len(p.digits(level))
+    pl = LimbPlacement(p, tp)
+    mine = pl.q_rows(level, rank) + pl.p_rows(rank)
+    sel = tuple(qp.index(i) for i in mine)
+    tabs = ntt.tabs(mine)
+    shape = f"[{beta},{len(mine)} of {len(qp)},{n}]"
+    for pm in (None, perm):
+        what = f"d1_regen rows {shape}{' permuted' if pm is not None else ''}"
+        whole = threefry.uniform_mont(seed, beta, *ntt.tabs(qp), n, pm)
+        before = d1_kernel.STATS.launches, d1_kernel.STATS.plain_calls
+        got = threefry.uniform_mont(seed, beta, *tabs, n, pm, rows=sel,
+                                    nqp=len(qp))
+        check((d1_kernel.STATS.launches, d1_kernel.STATS.plain_calls)
+              == (before[0] + 1, before[1]),
+              f"{what}: not one launch, or a plain call")
+        want = threefry.uniform_mont_plain(seed, beta, *tabs, n, pm, rows=sel,
+                                           nqp=len(qp))
+        check(torch.equal(got, want), f"{what} differs from plain")
+        check(torch.equal(got, whole[:, list(sel)]),
+              f"{what} differs from the whole draw's rows")
+        err = max(err, max_err(got, want))
+
+        def run():
+            return d1_kernel.d1_regen_cuda(seed, beta, *tabs, n, pm, rows=sel,
+                                           nqp=len(qp))
+
+        ms = cuda_ms(run, dev, iters=20)
+        plain_ms = cuda_ms(lambda: threefry.uniform_mont_plain(
+            seed, beta, *tabs, n, pm, rows=sel, nqp=len(qp)), dev, iters=3,
+            warmup=1)
+        elems = beta * len(mine) * n
+        n_bytes = 8 * (elems + 5 * len(mine) + (0 if pm is None else n))
+        bnd = card.bound(n_bytes, elems * card.slots["d1"])
+        rows.append(dict(shape=shape, permuted=pm is not None, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, **bnd))
+        print(f"{what}: equal to the whole draw's rows and to plain; {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+              f"{bnd['bound_by']}; max_abs_err {max_err(got, want)}")
     del ntt
     # no PyTorch call draws threefry residues modulo a prime
     return dict(max_abs_err=err, shapes=rows, **rows[0])
@@ -1774,6 +1830,219 @@ def sharding_path(dev, card) -> dict:
     return total
 
 
+SLAYER_SEED = 31
+SLAYER_LAYERS = ("blc1 Conv_sparse", "blc1to2 StrConv_sparse")
+# (world, the layers each rank runs, dryrun_fused_layer in that world too),
+# every world's ranks on the one card over gloo
+SLAYER_RUNS = ((2, SLAYER_LAYERS[:1], True), (4, SLAYER_LAYERS, False))
+
+
+def slayer_setup(ctx):
+    """The ResNet-20 runner and weights (``block1_runner``) on `ctx` and
+    the two layers of the sharded layer path, their seeded inputs packed
+    by the runner and encrypted in one order (the same ciphertexts, or a
+    rank's rows of them, on every context of the seed): → (runner,
+    {name: (input, plain pre-activation, output block, call(ct,
+    on_stage))}).  The block-1 layer is ``block1_layer``; the transition
+    is ``ResNetRunner.infer``'s ``StrConv_sparse`` call."""
+    runner, w = block1_runner(ctx)
+    cfg, p = runner.cfg, ctx.params
+    rng = np.random.default_rng(SLAYER_SEED)
+    raw0, raw1 = cfg.raw_in_wids[0], cfg.raw_in_wids[1]
+    rb = cfg.real_batch
+    li_str = NUM_BLOCKS[cfg.depth][0]
+    out = {}
+    for name, li in zip(SLAYER_LAYERS, (1, li_str)):
+        # in [-16, 16] as LayerOracle's seeded inputs: pre-activations
+        # reach a third of 2^pow, where the tighter layer bar holds
+        x = rng.uniform(-16, 16, (raw0, raw0, w.convs[li].shape[2]))
+        ct = ctx.encrypt(ctx.encoder.encode_coeffs(runner.pack(x, 0), p.scale,
+                                                   convops.ECD_LEVEL))
+        pre = convops.conv2d_same_np(x, w.convs[li]) * w.bn_a[li] + w.bn_b[li]
+        if li == 1:
+            def call(c, on_stage=None):
+                return block1_layer(ctx, runner.btps, runner, w, c, on_stage)
+            out[name] = (ct, pre, 0, call)
+            continue
+        ph = 0 if raw0 % 2 == 1 else 1
+        pre = pre[ph::2, ph::2][:raw1, :raw1]
+
+        def call(c, on_stage=None, li=li):
+            return eval_conv_bn_relu(
+                ctx, runner.btps, c, w.convs[li].ravel(), w.bn_a[li],
+                w.bn_b[li], cfg.alpha, cfg.mid_pow, cfg.in_wids[0], raw1,
+                w.convs[li].shape[0], rb[0], rb[1], runner.norm[1], 0, 1, 2,
+                runner.str_ls[0], "StrConv_sparse", runner.str_maps[0],
+                on_stage=on_stage)
+        out[name] = (ct, pre, 1, call)
+    return runner, out
+
+
+def slayer_rank(rank: int, layers, device: str, dryrun: bool) -> dict:
+    """One rank of a sharded-layer-path world (spawned by ``shd.run_ranks``,
+    the kernels built by the parent): a ``LimbShardedContext`` of the
+    path's seed on the world's tp axis, each layer of `layers` on its
+    rows: the first call (keys made, limbs by stage recorded), two warm
+    calls timed (ranks aligned by a barrier; the collectives of the first
+    warm call kept), one under the profiler on rank 0; the gathered
+    output's digest; key bytes and the peak; with `dryrun`,
+    ``dryrun_fused_layer`` (its own check against the single device).
+    Counters from the start; every kernel must launch."""
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    cuda_lib.lib()
+    for s in STATS:
+        s.reset()
+    ctx = LimbShardedContext(boot_params(16), dev, shd.make_mesh(),
+                             seed=SLAYER_SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, setup = slayer_setup(ctx)
+    res = {}
+    for name in layers:
+        ct, _, _, call = setup[name]
+        limbs = []
+
+        def on_stage(stage, value):
+            cts = value if isinstance(value, tuple) else (value,)
+            limbs.append([stage, [c.c0.shape[-2] for c in cts if c is not None]])
+
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = call(ct, on_stage)
+        _sync(dev)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        digest = shd._ct_digest(ctx.gather_ct(out))
+        walls, comm = [], None
+        for _ in range(2):
+            ctx.comm.clear()
+            dist.barrier()
+            _sync(dev)
+            t0 = time.perf_counter()
+            call(ct)
+            _sync(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            comm = comm or {k: list(v) for k, v in ctx.comm.items()}
+        dist.barrier()
+        device_ms = groups = None
+        if rank == 0:
+            _, device_ms, groups = _profile_groups(lambda: call(ct), dev)
+        else:
+            call(ct)
+        _sync(dev)
+        res[name] = dict(digest=digest, first_ms=first_ms, wall_ms=walls,
+                         device_ms=device_ms, groups=groups, comm=comm,
+                         limbs=limbs)
+    cache = ctx._swk_cache
+    out = dict(layers=res, key_bytes=cache.d0_bytes, memo_bytes=cache.d1_bytes,
+               keys=len(cache), limbs_p=len(ctx.p_rows()),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / GIB)
+    if dryrun:
+        t0 = time.perf_counter()
+        dr = shd.dryrun_fused_layer(shd._world_size(), device=device)
+        out["dryrun"] = dict(seconds=time.perf_counter() - t0,
+                             digests=dr["digests"], comm=dr["comm"])
+    out["counts"] = _path_counts(f"sharded layer path rank {rank}", dev)
+    return out
+
+
+def sharded_layer_path(dev, card) -> dict:
+    """Phase 17, after ``sharding_path``: whole fused layers on limb-sharded
+    contexts (``parallel/limbs.py``): the ResNet-20 block-1 ``Conv_sparse``
+    layer (32², 16 → 16, log_sparse 2) at tp 2 and tp 4, and the
+    ``StrConv_sparse`` blc1to2 transition at tp 4, each world's ranks
+    sharing the one card over gloo, at logN 16 on the fork's 28 + 5
+    limbs; then ``dryrun_fused_layer`` (logN 9, the JAX dryrun's three
+    legs, each checked by every rank against the single device) on 2
+    ranks.  First the single device on a fresh context of the seed: each
+    layer to the layer bars, its digest, warm walls and device ms.  Every
+    rank's gathered output must equal the single device's digest (level
+    and scale included).  Prints walls by rank, rank 0's device ms
+    (kernels and the runtime's copies apart), the collectives of one
+    warm layer by kind, each rank's limbs by stage, its key bytes and
+    peak, and the path's seconds."""
+    t_path = time.perf_counter()
+    cuda_lib.lib()
+    torch.cuda.empty_cache()
+    ctx = CkksContext(boot_params(16), dev, seed=SLAYER_SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    runner, setup = slayer_setup(ctx)
+    want, single = {}, {}
+    for name, (ct, pre, block, call) in setup.items():
+        t0 = time.perf_counter()
+        out = call(ct)
+        _sync(dev)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        _layer_check(ctx, runner, out, pre,
+                     f"sharded layer path, single device, {name}", block)
+        want[name] = shd._ct_digest(out)
+        walls = [_wall_ms(lambda: call(ct), dev, iters=1) for _ in range(2)]
+        _, busy, groups = _profile_groups(lambda: call(ct), dev)
+        single[name] = dict(first_ms=first_ms, wall_ms=walls, device_ms=busy,
+                            kernel_ms=_kernel_ms(busy, groups), groups=groups)
+        print(f"sharded layer path, single device, {name}, {card}: "
+              + json.dumps(single[name]))
+    print(f"sharded layer path, single device: {cache_line(ctx)}; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / GIB:.3f} GiB")
+    del ctx, runner, setup, out
+    torch.cuda.empty_cache()
+    total = dict(launches={}, by_rows={})
+    for world, layers, dry in SLAYER_RUNS:
+        t0 = time.perf_counter()
+        ranks = shd.run_ranks(slayer_rank, world, (layers, str(dev), dry),
+                              backend="gloo", timeout=900)
+        secs = time.perf_counter() - t0
+        for name in layers:
+            got = [r["layers"][name] for r in ranks]
+            for r, g in enumerate(got):
+                check(g["digest"] == want[name],
+                      f"sharded layer path tp {world} {name}, rank {r}: output "
+                      "differs from the single device")
+            g0 = got[0]
+            summary = dict(
+                first_ms_by_rank=[g["first_ms"] for g in got],
+                wall_ms_by_rank=[g["wall_ms"] for g in got],
+                device_ms_rank0=g0["device_ms"],
+                kernel_ms_rank0=_kernel_ms(g0["device_ms"], g0["groups"]),
+                single=dict(wall_ms=single[name]["wall_ms"],
+                            device_ms=single[name]["device_ms"],
+                            kernel_ms=single[name]["kernel_ms"]),
+                groups_rank0=g0["groups"], comm_one_layer_rank0=g0["comm"],
+                limbs_by_stage=[[s, [g["limbs"][i][1] for g in got]]
+                                for i, (s, _) in enumerate(g0["limbs"])])
+            print(f"sharded layer path tp {world} {name} ({card}): equal to "
+                  "the single device's digest on every rank; "
+                  + json.dumps(summary))
+        print(f"sharded layer path tp {world}: P limbs by rank "
+              f"{[r['limbs_p'] for r in ranks]}; key bytes by rank "
+              f"{[round(r['key_bytes'] / GIB, 4) for r in ranks]} GiB resident, "
+              f"{[round(r['memo_bytes'] / GIB, 4) for r in ranks]} GiB memos, "
+              f"{[r['keys'] for r in ranks]} keys; peak by rank "
+              f"{[round(r['peak_gib'], 3) for r in ranks]} GiB")
+        if dry:
+            d = ranks[0]["dryrun"]
+            check(all(r["dryrun"]["digests"] == d["digests"] for r in ranks),
+                  "sharded layer path: dryrun_fused_layer digests differ")
+            print(f"sharded layer path: dryrun_fused_layer on {world} ranks "
+                  f"(logN 9, 3 legs) equal to the single device on every rank "
+                  f"in {d['seconds']:.1f} s; collectives of rank 0 "
+                  + json.dumps(d["comm"]))
+        for r in ranks:
+            _add_counts(total, r["counts"])
+        print(f"sharded layer path: world {world} took {secs:.1f} s "
+              "(processes, contexts, bootstrappers, keys, layers, checks); "
+              "launches by rank "
+              + json.dumps([r["counts"]["launches"] for r in ranks]))
+    print(f"sharded layer path launches (all ranks): "
+          f"{json.dumps(total['launches'])}; the path took "
+          f"{time.perf_counter() - t_path:.1f} s")
+    for s in STATS:
+        check(total["launches"][s.name] > 0, f"{s.name}: no launch on the "
+              "sharded layer path")
+        s.reset()
+    torch.cuda.empty_cache()
+    return total
+
+
 def resnet_path(dev, card):
     """Phase 11: ResNet-20 CIFAR-10 wide 1 at logN 16 through the runner,
     19 fused layers and the FC head, on 2 images, each encrypted argmax
@@ -2357,6 +2626,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(keys_path(dev, card))
     paths["sharding path"] = sharding_path(dev, card)
+    paths["sharded layer path"] = sharded_layer_path(dev, card)
     paths["resnet path"] = resnet_path(dev, card)
     torch.cuda.empty_cache()
     paths["fast path"] = fast_path(dev, card)

@@ -63,32 +63,34 @@ DOUBLE_HOIST_DEFAULT = False
 # ---------------------------------------------------------------------------
 
 def mod_raise(ctx: CkksContext, ct: Ciphertext) -> Ciphertext:
-    """Level 0 → max level: centered lift of each residue poly mod q0."""
+    """Level 0 → max level: centered lift of each residue poly mod q0 (a
+    sharded context broadcasts limb 0 from its owner, and each rank lifts
+    to its own limbs)."""
     p = ctx.params
     if ct.level != 0:
         raise ValueError(f"mod_raise needs a level-0 ciphertext, got {ct.level}")
     lmax = p.max_level
-    idx = p.q_idx(lmax)
+    idx = ctx.q_rows(lmax)
     q0 = p.q_moduli[0]
     ext = ctx.tables.extender((0,), idx)
     q = ctx.ntt.tabs(idx)[0]
     key = ("modraise_q0",)
     q0_mod = ctx._pt_cache.get(key)
     if q0_mod is None:
-        q0_mod = torch.tensor([q0 % m for m in p.q_moduli[: lmax + 1]],
+        q0_mod = torch.tensor([q0 % p.moduli[i] for i in idx],
                               dtype=torch.int64, device=ctx.device)[:, None]
         ctx._pt_cache[key] = q0_mod
     half = q0 // 2
 
-    def lift(c):
-        cc = ctx.ntt.intt(c, (0,))                     # [1, N] mod q0
+    def lift(cc):                                      # [1, N] mod q0
         e = ext.extend(cc)                             # [lmax+1, N]
         # residues are int64 below 2^62: the signed compare is the
         # unsigned one
         e = torch.where(cc > half, mm.sub_mod(e, q0_mod, q), e)
         return ctx.ntt.ntt(e, idx)
 
-    return Ciphertext(lift(ct.c0), lift(ct.c1), level=lmax, scale=ct.scale)
+    cc = ctx._limb_coeffs(ct.c0, ct.c1, 0)
+    return Ciphertext(lift(cc[0]), lift(cc[1]), level=lmax, scale=ct.scale)
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +210,7 @@ class LinearTransform:
             inner = _inner
         p = ctx.params
         scale = ct.scale * self.pt_scale
-        nq, nqp = self.level + 1, self.level + 1 + p.num_p
+        nq, nqp = len(ctx.q_rows(self.level)), len(ctx.qp_rows(self.level))
         g0 = None
         aq0 = ap0 = ap1 = None
         for g, _, pts, sel in self.stacked:
@@ -244,7 +246,7 @@ def _sum_rows(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def _inner(ctx: CkksContext, level: int, stacks, sel, pts):
     """One giant's inner sum, single-hoisted:
     (Σ_r c0_r·pt_r, Σ_r c1_r·pt_r) on Q_level (JAX: ``_build_inner``)."""
-    q, qinv = ctx.ntt.tabs(ctx.params.q_idx(level))[:2]
+    q, qinv = ctx.ntt.tabs(ctx.q_rows(level))[:2]
     c0s, c1s = stacks if sel is None else (s.index_select(0, sel)
                                            for s in stacks)
     return (_sum_rows(mm.mont_mul(c0s, pts, q, qinv), q),
@@ -257,21 +259,22 @@ def _inner_dh(ctx: CkksContext, level: int, stacks, sel, pts):
         (Σ_r φ_r(c0)·pt_r  +  (Σ_r acc0_r·pt_r)/P,   (Σ_r acc1_r·pt_r)/P)
 
     stacks = (c0 on Q [nb, l+1, N], acc0 and acc1 on QP [nb, l+1+P, N]);
-    pts is QP-encoded, its first l+1 rows being the Q encoding.  The
+    pts is QP-encoded, its first l+1 rows (a sharded context's Q rows)
+    being the Q encoding.  The
     mod-down after the plaintext product differs from the product of the
     mod-down by less than |pt| a coefficient, far below the key-switch
     noise (JAX: ``_build_inner_dh``)."""
-    p = ctx.params
-    q, qinv = ctx.ntt.tabs(p.q_idx(level))[:2]
-    qq, qqinv = ctx.ntt.tabs(p.qp_idx(level))[:2]
-    nq = level + 1
+    q_rows = ctx.q_rows(level)
+    q, qinv = ctx.ntt.tabs(q_rows)[:2]
+    qq, qqinv = ctx.ntt.tabs(ctx.qp_rows(level))[:2]
+    nq = len(q_rows)
     c0s, a0s, a1s = stacks if sel is None else (s.index_select(0, sel)
                                                 for s in stacks)
     sq = _sum_rows(mm.mont_mul(c0s, pts[:, :nq], q, qinv), q)
     s0 = _sum_rows(mm.mont_mul(a0s, pts, qq, qqinv), qq)
     s1 = _sum_rows(mm.mont_mul(a1s, pts, qq, qqinv), qq)
-    return (mm.add_mod(sq, ctx._mod_down(s0, level), q),
-            ctx._mod_down(s1, level))
+    md0, md1 = ctx._mod_down_many((s0, s1), level)
+    return mm.add_mod(sq, md0, q), md1
 
 
 # ---------------------------------------------------------------------------

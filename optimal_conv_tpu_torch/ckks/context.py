@@ -21,9 +21,13 @@ memoises on the key.  Eviction is transparent: a key's seed is a
 function of its tag (``_key_seed``), so a key made again is the same key.
 
 Polynomials are ``[..., l+1, N]`` int64 tensors on the context's device,
-NTT (bit-reversed) domain and standard form.  The evaluator functions
-take leading batch dims, which is how the fused conv-pack batches its
-channel products and key switches.
+NTT (bit-reversed) domain and standard form.  The evaluator reads which
+limbs it holds from ``q_rows`` / ``p_rows``: all of them here, a rank's
+own in the limb-sharded context (``parallel/limbs.py``), which also
+overrides the three functions that cross limbs (``_decompose``,
+``_mod_down_many``, ``_limb_coeffs``) with their collectives.  The
+evaluator functions take leading batch dims, which is how the fused
+conv-pack batches its channel products and key switches.
 
 Randomness mirrors the JAX package: the secret key and the encryption
 noise come from ``np.random.default_rng(seed)`` in the same draw order,
@@ -211,7 +215,7 @@ class CkksContext:
                               else compress_keys)
         self._key_budgets = (int(key_cache_gib * GIB), int(key_expand_gib * GIB))
         self.tables = DeviceTables(params, self.device)
-        self.encoder = Encoder(params, self.tables)
+        self.encoder = Encoder(params, self.tables, self._encoder_rows())
         self.rng = np.random.default_rng(seed)
         self._seed = seed
         p = params
@@ -255,7 +259,30 @@ class CkksContext:
         return int.from_bytes(h[:8], "little")
 
     def _rows(self, t: torch.Tensor, idx) -> torch.Tensor:
-        return t.index_select(0, torch.tensor(list(idx), device=self.device))
+        return t.index_select(0, torch.tensor(list(idx), dtype=torch.int64,
+                                              device=self.device))
+
+    # ------------------------------------------------------------------
+    # the limbs this context holds (all of them; a limb-sharded context
+    # holds its own, in increasing order, Q before P)
+    # ------------------------------------------------------------------
+
+    def q_rows(self, level: int) -> tuple[int, ...]:
+        """The global Q limbs of `level` whose rows this context holds."""
+        return self.params.q_idx(level)
+
+    def p_rows(self) -> tuple[int, ...]:
+        """The global P limbs whose rows this context holds."""
+        return self.params.p_idx()
+
+    def qp_rows(self, level: int) -> tuple[int, ...]:
+        return self.q_rows(level) + self.p_rows()
+
+    def _encoder_rows(self):
+        """The encoder's rows(level, qp), or None for all limbs.  It must
+        not refer to the context: a context in a reference cycle is freed
+        only by the cyclic collector, and its keys stay on the card."""
+        return None
 
     # ------------------------------------------------------------------
     # encryption / decryption (symmetric, as the reference)
@@ -265,21 +292,31 @@ class CkksContext:
         return np.round(self.rng.normal(0.0, self.params.sigma, self.params.n)
                         ).astype(np.int64)
 
-    def _uniform_poly(self, idx) -> torch.Tensor:
+    def _uniform_poly(self, level: int, idx) -> torch.Tensor:
+        """The rows `idx` of a uniform polynomial on Q_level: every row is
+        drawn, so the generator moves as for the whole polynomial."""
         p = self.params
-        rows = [self.rng.integers(0, p.moduli[i], size=p.n, dtype=np.uint64)
-                for i in idx]
-        return torch.from_numpy(np.stack(rows).view(np.int64)).to(self.device)
+        rows = np.stack([self.rng.integers(0, p.moduli[i], size=p.n,
+                                           dtype=np.uint64)
+                         for i in p.q_idx(level)])
+        if idx != p.q_idx(level):
+            rows = rows[list(idx)]
+        return torch.from_numpy(rows.view(np.int64)).to(self.device)
 
     def encrypt(self, pt: Plaintext) -> Ciphertext:
+        """A ciphertext of `pt` (this context's rows of it): on a limb-
+        sharded context the rank's rows of the ciphertext the whole
+        context of the same seed makes."""
         p = self.params
         level = pt.level
-        idx = p.q_idx(level)
+        idx = self.q_rows(level)
         q, qinv, r2, _ = self.ntt.tabs(idx)
-        c1 = self._uniform_poly(idx)
-        e = mm.centered_to_residues(self._gauss_ints(), p.q_moduli[: level + 1])
+        c1 = self._uniform_poly(level, idx)
+        e = mm.centered_to_residues(self._gauss_ints(),
+                                    [p.moduli[i] for i in idx])
         e_ntt = self.ntt.ntt(torch.from_numpy(e).to(self.device), idx)
-        sk = self.sk_ntt[: level + 1]
+        sk = (self.sk_ntt[: level + 1] if idx == p.q_idx(level)
+              else self._rows(self.sk_ntt, idx))
         m = pt.poly
         if pt.is_mont:
             m = mm.from_mont(m, q, qinv)
@@ -309,23 +346,30 @@ class CkksContext:
     def _uniform_mont(self, seed: int, beta: int, level: int,
                       perm: torch.Tensor | None = None) -> torch.Tensor:
         """[beta, l+1+P, N] uniform residues of `seed`, JAX's draw bit for
-        bit (``core/threefry.py``; the ``d1_regen`` kernel on the card)."""
-        q, qinv, r2, r1 = self.ntt.tabs(self.params.qp_idx(level))
-        return threefry.uniform_mont(seed, beta, q, qinv, r2, r1,
-                                     self.params.n, perm)
+        bit (``core/threefry.py``; the ``d1_regen`` kernel on the card);
+        on a sharded context the rows of its limbs, drawn at their
+        counters in the whole key."""
+        p = self.params
+        whole = p.qp_idx(level)
+        mine = self.qp_rows(level)
+        q, qinv, r2, r1 = self.ntt.tabs(mine)
+        rows = None if mine == whole else tuple(whole.index(i) for i in mine)
+        return threefry.uniform_mont(seed, beta, q, qinv, r2, r1, p.n, perm,
+                                     rows=rows, nqp=len(whole))
 
     def gen_switching_key(self, s_from_ntt: torch.Tensor, level: int,
                           seed: int) -> SwitchingKey:
         """Key switching s_from → s at `level` (hybrid, P primes).
 
-        s_from_ntt: [l+1+P, N] on the limbs qp_idx(level).
+        s_from_ntt: [l+1+P, N] on the limbs qp_rows(level) (a sharded
+        context makes the rows of its own limbs, with no collective).
         d0_d = -a_d·s + e_d + P·w_d·s_from (w_d the CRT indicator of
         digit d), stored NTT + Montgomery; d1_d = a_d, a uniform residue
         from `seed` read directly as the Montgomery form of another
         uniform one.  A compressed key keeps d0 and the seed; ``swk_d1``
         draws a again; its first draw stays on the key as the memo."""
         p = self.params
-        qp = p.qp_idx(level)
+        qp = self.qp_rows(level)
         q, qinv, r2, _ = self.ntt.tabs(qp)
         digits = p.digits(level)
         beta = len(digits)
@@ -342,8 +386,9 @@ class CkksContext:
         pw = np.zeros((beta, len(qp), 1), dtype=np.int64)
         for d, digit in enumerate(digits):
             for i in digit:
-                m = p.moduli[i]
-                pw[d, qp.index(i), 0] = (p.big_p % m) * ((1 << 64) % m) % m
+                if i in qp:
+                    m = p.moduli[i]
+                    pw[d, qp.index(i), 0] = (p.big_p % m) * ((1 << 64) % m) % m
         ps = mm.mont_mul(s_from_ntt[None], torch.from_numpy(pw).to(self.device),
                          q, qinv)
         b = mm.add_mod(mm.sub_mod(e_ntt, a_s, q), ps, q)
@@ -372,7 +417,7 @@ class CkksContext:
         swk = self._swk_cache.get(key)
         if swk is None:
             swk = self.gen_switching_key(
-                self._rows(self.sk2_ntt, self.params.qp_idx(level)), level,
+                self._rows(self.sk2_ntt, self.qp_rows(level)), level,
                 seed=self._key_seed(key))
             self._swk_cache.put(key, swk)
         return swk
@@ -384,7 +429,7 @@ class CkksContext:
         key = ("gal", g, level)
         swk = self._swk_cache.get(key)
         if swk is None:
-            qp = p.qp_idx(level)
+            qp = self.qp_rows(level)
             src, flip = nttmod.galois_perm_coeff(p.log_n, g)
             s_g = nttmod.apply_galois_coeff(
                 self._rows(self.sk_coeff, qp),
@@ -452,24 +497,26 @@ class CkksContext:
         c1c = self.ntt.intt(c1, self.params.q_idx(level))
         return self.tables.digit_extender(level).extend_digits(c1c)
 
-    def _mod_down(self, acc: torch.Tensor, level: int) -> torch.Tensor:
-        """[..., l+1+P, N] QP accumulator → [..., l+1, N] on Q_level,
-        divided by P and rounded (JAX: ``_mod_down_builder``)."""
+    def _mod_down_many(self, accs, level: int) -> list:
+        """[..., l+1+P, N] QP accumulators → each [..., l+1, N] on
+        Q_level, divided by P and rounded, in order (JAX:
+        ``_mod_down_builder``; a sharded context gathers the P rows of
+        all of them in one collective)."""
+        p = self.params
         nq = level + 1
-        acc_p = self.ntt.intt(acc[..., nq:, :], self.params.p_idx())
-        return self._mod_down_limbs(acc[..., :nq, :], acc_p, level,
-                                    self.params.q_idx(level))
+        return [self._mod_down_limbs(acc[..., :nq, :],
+                                     self.ntt.intt(acc[..., nq:, :], p.p_idx()),
+                                     level, p.q_idx(level)) for acc in accs]
 
     def _mod_down_limbs(self, acc_q: torch.Tensor, acc_p: torch.Tensor,
                         level: int, idx) -> torch.Tensor:
-        """The mod-down on the Q limbs `idx` (contiguous) of `level`:
-        acc_q [..., |idx|, N] (NTT domain), acc_p [..., |P|, N] all the P
-        rows in coefficient form → (acc_q − [acc_p]_idx)·P⁻¹."""
+        """The mod-down on the Q limbs `idx` of `level`: acc_q [..., |idx|,
+        N] (NTT domain), acc_p [..., |P|, N] all the P rows in
+        coefficient form → (acc_q − [acc_p]_idx)·P⁻¹."""
         qq, qqinv = self.ntt.tabs(idx)[:2]
         ext = self.tables.extender(self.params.p_idx(), idx).extend(acc_p)
         diff = mm.sub_mod(acc_q, self.ntt.ntt(ext, idx), qq)
-        p_inv = self.tables.p_inv_mont(level)[idx[0]:idx[-1] + 1]
-        return mm.mont_mul(diff, p_inv, qq, qqinv)
+        return mm.mont_mul(diff, self.tables.p_inv_rows(idx), qq, qqinv)
 
     def _ks_core(self, digits: torch.Tensor, d0: torch.Tensor,
                  d1: torch.Tensor, level: int, input_ntt: bool = False,
@@ -483,8 +530,8 @@ class CkksContext:
         lazy: no mod-down; the [..., l+1+P, N] QP accumulators are
         returned, and a caller that sums several divides by P once.
         idx: the limbs of the digits' and the key's rows (default
-        qp_idx(level); a limb-sharded step passes its own, lazy)."""
-        qp = self.params.qp_idx(level) if idx is None else idx
+        qp_rows(level); a limb-sharded step passes its own, lazy)."""
+        qp = self.qp_rows(level) if idx is None else idx
         q, qinv = self.ntt.tabs(qp)[:2]
         dig = digits if input_ntt else self.ntt.ntt(digits, qp)
         t0 = mm.mont_mul(dig, d0, q, qinv)
@@ -495,7 +542,8 @@ class CkksContext:
             acc1 = mm.add_mod(acc1, t1[..., d, :, :], q)
         if lazy:
             return acc0, acc1
-        return self._mod_down(acc0, level), self._mod_down(acc1, level)
+        ks0, ks1 = self._mod_down_many((acc0, acc1), level)
+        return ks0, ks1
 
     def keyswitch(self, c1: torch.Tensor, level: int, swk: SwitchingKey):
         if swk.level != level:
@@ -508,7 +556,7 @@ class CkksContext:
     # ------------------------------------------------------------------
 
     def _q(self, level: int) -> torch.Tensor:
-        return self.ntt.tabs(self.params.q_idx(level))[0]
+        return self.ntt.tabs(self.q_rows(level))[0]
 
     def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         _same_level_scale(a, b)
@@ -539,7 +587,8 @@ class CkksContext:
 
     def _const_col(self, c: int, level: int) -> torch.Tensor:
         """The integer c mod each q_i of `level`, as an [l+1, 1] column."""
-        return torch.tensor([c % q for q in self.params.q_moduli[: level + 1]],
+        mods = self.params.moduli
+        return torch.tensor([c % mods[i] for i in self.q_rows(level)],
                             dtype=torch.int64, device=self.device)[:, None]
 
     def add_const(self, a: Ciphertext, const: float) -> Ciphertext:
@@ -554,14 +603,14 @@ class CkksContext:
             raise ValueError("mul_plain needs a Montgomery-form plaintext at "
                              f"level {a.level}, got level {pt.level}, "
                              f"is_mont={pt.is_mont}")
-        q, qinv = self.ntt.tabs(self.params.q_idx(a.level))[:2]
+        q, qinv = self.ntt.tabs(self.q_rows(a.level))[:2]
         return Ciphertext(mm.mont_mul(a.c0, pt.poly, q, qinv),
                           mm.mont_mul(a.c1, pt.poly, q, qinv),
                           level=a.level, scale=a.scale * pt.scale)
 
     def mul_scalar_int(self, a: Ciphertext, c: int) -> Ciphertext:
         """Multiply the values by an exact integer; the scale is unchanged."""
-        q, qinv, r2, _ = self.ntt.tabs(self.params.q_idx(a.level))
+        q, qinv, r2, _ = self.ntt.tabs(self.q_rows(a.level))
         key = ("scl", c, a.level)
         cm = self._pt_cache.get(key)
         if cm is None:
@@ -583,7 +632,7 @@ class CkksContext:
         if a.level != b.level:
             raise ValueError(f"operands differ: level {a.level}/{b.level}")
         lvl = a.level
-        q, qinv, r2, _ = self.ntt.tabs(self.params.q_idx(lvl))
+        q, qinv, r2, _ = self.ntt.tabs(self.q_rows(lvl))
         d0 = mm.mul_mod(a.c0, b.c0, q, qinv, r2)
         d1 = mm.add_mod(mm.mul_mod(a.c0, b.c1, q, qinv, r2),
                         mm.mul_mod(a.c1, b.c0, q, qinv, r2), q)
@@ -605,21 +654,31 @@ class CkksContext:
         if lvl < 1:
             raise ValueError("rescale needs level ≥ 1")
         q_top = self.params.q_moduli[lvl]
-        return Ciphertext(self._rescale_poly(a.c0, lvl),
-                          self._rescale_poly(a.c1, lvl),
-                          level=lvl - 1, scale=a.scale / q_top)
+        c0, c1 = self._rescale_pair(a.c0, a.c1, lvl)
+        return Ciphertext(c0, c1, level=lvl - 1, scale=a.scale / q_top)
 
-    def _rescale_poly(self, c: torch.Tensor, lvl: int) -> torch.Tensor:
-        """[..., lvl+1, N] → [..., lvl, N]: (c − [c mod q_top]) / q_top
-        with the centered remainder (JAX: ``_rescale_f``)."""
-        t = self.ntt.intt(c[..., lvl:, :], (lvl,))               # [..., 1, N]
-        return self._rescale_limbs(c[..., :lvl, :], t, lvl,
-                                   self.params.q_idx(lvl - 1))
+    def _rescale_pair(self, c0: torch.Tensor, c1: torch.Tensor, lvl: int):
+        """[..., lvl+1, N] → [..., lvl, N], both halves: (c − [c mod
+        q_top]) / q_top with the centered remainder (JAX: ``_rescale_f``).
+        The top limb's coefficient form comes from ``_limb_coeffs``."""
+        t0, t1 = self._limb_coeffs(c0, c1, lvl)
+        idx = self.q_rows(lvl - 1)
+        k = len(idx)
+        if not k:                      # a sharded rank with no limb below
+            return c0[..., :0, :], c1[..., :0, :]
+        return (self._rescale_limbs(c0[..., :k, :], t0, lvl, idx),
+                self._rescale_limbs(c1[..., :k, :], t1, lvl, idx))
+
+    def _limb_coeffs(self, c0: torch.Tensor, c1: torch.Tensor, limb: int):
+        """The Q limb `limb` of both halves in coefficient form, two
+        [..., 1, N] (a sharded context broadcasts it from its owner)."""
+        return tuple(self.ntt.intt(c[..., limb:limb + 1, :], (limb,))
+                     for c in (c0, c1))
 
     def _rescale_limbs(self, c: torch.Tensor, t: torch.Tensor, lvl: int,
                        idx) -> torch.Tensor:
-        """The rescale on the Q limbs `idx` (contiguous, below lvl): c
-        [..., |idx|, N], t [..., 1, N] the top limb in coefficient form."""
+        """The rescale on the Q limbs `idx` (below lvl): c [..., |idx|, N],
+        t [..., 1, N] the top limb in coefficient form."""
         p = self.params
         q_top = p.q_moduli[lvl]
         q, qinv, _, r1 = self.ntt.tabs(idx)
@@ -632,15 +691,16 @@ class CkksContext:
         red = mm.mont_mul(t, r1, q, qinv)                       # t mod q_i
         red = torch.where(t > q_top // 2, mm.sub_mod(red, qtop_mod, q), red)
         red_ntt = self.ntt.ntt(red, idx)
-        qlast_inv = self.tables.qlast_inv_mont(lvl)[idx[0]:idx[-1] + 1]
-        return mm.mont_mul(mm.sub_mod(c, red_ntt, q), qlast_inv, q, qinv)
+        return mm.mont_mul(mm.sub_mod(c, red_ntt, q),
+                           self.tables.qlast_inv_rows(lvl, idx), q, qinv)
 
     def drop_level(self, a: Ciphertext, levels: int) -> Ciphertext:
         if levels <= 0:
             return a
         nl = a.level - levels
-        return Ciphertext(a.c0[..., : nl + 1, :], a.c1[..., : nl + 1, :],
-                          level=nl, scale=a.scale)
+        k = len(self.q_rows(nl))
+        return Ciphertext(a.c0[..., :k, :], a.c1[..., :k, :], level=nl,
+                          scale=a.scale)
 
     def set_scale(self, a: Ciphertext, target: float) -> Ciphertext:
         """Multiply by round(target·q_level/scale), then rescale, so that
@@ -687,8 +747,7 @@ class CkksContext:
         commutes with the digit split (both act coefficient by
         coefficient), so permuting these digits equals splitting the
         permuted c1."""
-        return self.ntt.ntt(self._decompose(c1, level),
-                            self.params.qp_idx(level))
+        return self.ntt.ntt(self._decompose(c1, level), self.qp_rows(level))
 
     def rotate_hoisted(self, a: Ciphertext, rots) -> dict:
         """{k: a rotated by k} for every k of `rots`: decompose once,
@@ -748,20 +807,21 @@ class CkksContext:
         P·c1 on the Q rows and 0 on the P rows, so the mod-down gives
         back c1 exactly; a0 = 0 (no key switch happened)."""
         p = self.params
-        nq = level + 1
-        q, qinv = self.ntt.tabs(p.q_idx(level))[:2]
+        idx = self.q_rows(level)
+        nq, npr = len(idx), len(self.p_rows())
+        q, qinv = self.ntt.tabs(idx)[:2]
         key = ("pmont", level)
         pm = self._pt_cache.get(key)
         if pm is None:
             # Montgomery form of the scalar P on each Q limb
             pm = torch.tensor([(p.big_p % m) * ((1 << 64) % m) % m
-                               for m in p.q_moduli[:nq]], dtype=torch.int64,
-                              device=self.device)[:, None]
+                               for m in (p.moduli[i] for i in idx)],
+                              dtype=torch.int64, device=self.device)[:, None]
             self._pt_cache[key] = pm
         top = mm.mont_mul(c1, pm, q, qinv)
         lead = tuple(c1.shape[:-2])
-        a1 = torch.cat([top, top.new_zeros(lead + (p.num_p, p.n))], dim=-2)
-        return c0, top.new_zeros(lead + (nq + p.num_p, p.n)), a1
+        a1 = torch.cat([top, top.new_zeros(lead + (npr, p.n))], dim=-2)
+        return c0, top.new_zeros(lead + (nq + npr, p.n)), a1
 
     def galois_acc(self, c0, c1, g: int, lvl: int, aq0, ap0, ap1):
         """φ_g of (c0, c1) with a lazy key switch, folded into running
@@ -772,7 +832,7 @@ class CkksContext:
         g = g % (2 * p.n)
         swk = self.galois_key(g, lvl)
         perm = self.galois_perm(g)
-        qp_q = self.ntt.tabs(p.qp_idx(lvl))[0]
+        qp_q = self.ntt.tabs(self.qp_rows(lvl))[0]
         c0p = nttmod.apply_galois_ntt(c0, perm)
         c1p = nttmod.apply_galois_ntt(c1, perm)
         a0, a1 = self._ks_core(self._decompose(c1p, lvl), swk.d0,
@@ -784,8 +844,9 @@ class CkksContext:
         """(g0c0, g0c1) + the lazy sums of ``galois_acc``, divided by P:
         → the two polynomials of a ciphertext on Q_lvl."""
         q = self._q(lvl)
-        o0 = mm.add_mod(mm.add_mod(aq0, self._mod_down(ap0, lvl), q), g0c0, q)
-        o1 = mm.add_mod(self._mod_down(ap1, lvl), g0c1, q)
+        md0, md1 = self._mod_down_many((ap0, ap1), lvl)
+        o0 = mm.add_mod(mm.add_mod(aq0, md0, q), g0c0, q)
+        o1 = mm.add_mod(md1, g0c1, q)
         return o0, o1
 
     # ------------------------------------------------------------------
@@ -798,7 +859,7 @@ class CkksContext:
         if k == 0:
             return a
         mono = self.monomial_pt(k, a.level)
-        q, qinv = self.ntt.tabs(self.params.q_idx(a.level))[:2]
+        q, qinv = self.ntt.tabs(self.q_rows(a.level))[:2]
         return Ciphertext(mm.mont_mul(a.c0, mono, q, qinv),
                           mm.mont_mul(a.c1, mono, q, qinv),
                           level=a.level, scale=a.scale)
@@ -809,13 +870,13 @@ class CkksContext:
         key = ("mono", k, level)
         mono_ntt = self._pt_cache.get(key)
         if mono_ntt is None:
-            idx = p.q_idx(level)
+            idx = self.q_rows(level)
             mono = np.zeros(p.n, dtype=np.int64)
             if k < p.n:
                 mono[k] = 1
             else:
                 mono[k - p.n] = -1
-            res = mm.centered_to_residues(mono, p.q_moduli[: level + 1])
+            res = mm.centered_to_residues(mono, [p.moduli[i] for i in idx])
             q, qinv, r2, _ = self.ntt.tabs(idx)
             mono_ntt = mm.to_mont(
                 self.ntt.ntt(torch.from_numpy(res).to(self.device), idx),

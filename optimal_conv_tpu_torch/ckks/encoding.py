@@ -71,9 +71,15 @@ def coeffs_to_slots_np(c: np.ndarray) -> np.ndarray:
 
 
 class Encoder:
-    def __init__(self, params: CkksParams, tables: DeviceTables):
+    """rows(level, qp): the limbs of the plaintexts it makes (default all
+    of Q_level, or of Q_level·P with qp); a limb-sharded context's
+    encoder makes only its own rows."""
+
+    def __init__(self, params: CkksParams, tables: DeviceTables, rows=None):
         self.params = params
         self.tables = tables
+        self.rows = rows or (lambda level, qp: params.qp_idx(level) if qp
+                             else params.q_idx(level))
 
     # ---- coefficient packing ---------------------------------------------
 
@@ -134,7 +140,7 @@ class Encoder:
         """Rounded float64 coefficients → residues on the device, NTT
         domain, Montgomery form when `mont`."""
         p = self.params
-        idx = p.qp_idx(level) if qp else p.q_idx(level)
+        idx = self.rows(level, qp)
         mods = [p.moduli[i] for i in idx]
         if np.abs(ints).max() < 2**62:
             res = mm.centered_to_residues(ints.astype(np.int64), mods)

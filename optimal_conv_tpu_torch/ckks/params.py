@@ -146,20 +146,21 @@ class DeviceTables:
         return self._get(("dext", level, dst), lambda: rns.DigitExtender(
             p.digits(level), dst, p.moduli, self.device))
 
-    def p_inv_mont(self, level: int) -> torch.Tensor:
-        """P^{-1} mod q_i (Montgomery form) for the q-limbs of `level`: [l+1, 1]."""
+    def p_inv_rows(self, idx: tuple[int, ...]) -> torch.Tensor:
+        """P^{-1} mod q_i (Montgomery form) for the Q limbs `idx`: [|idx|, 1]."""
         p = self.params
-        return self._get(("pinv", level), lambda: _col(
+        return self._get(("pinv", idx), lambda: _col(
             [pow(p.big_p % q, -1, q) * ((1 << 64) % q) % q
-             for q in p.q_moduli[:level + 1]], self.device))
+             for q in (p.q_moduli[i] for i in idx)], self.device))
 
-    def qlast_inv_mont(self, level: int) -> torch.Tensor:
-        """q_level^{-1} mod q_i (Montgomery) for i < level: [level, 1]."""
+    def qlast_inv_rows(self, level: int, idx: tuple[int, ...]) -> torch.Tensor:
+        """q_level^{-1} mod q_i (Montgomery) for the Q limbs `idx` below
+        `level`: [|idx|, 1]."""
         p = self.params
         ql = p.q_moduli[level]
-        return self._get(("qlinv", level), lambda: _col(
+        return self._get(("qlinv", level, idx), lambda: _col(
             [pow(ql % q, -1, q) * ((1 << 64) % q) % q
-             for q in p.q_moduli[:level]], self.device))
+             for q in (p.q_moduli[i] for i in idx)], self.device))
 
 
 def _col(vals, device) -> torch.Tensor:

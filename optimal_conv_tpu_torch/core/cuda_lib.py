@@ -95,10 +95,11 @@ def _bind(dll: ctypes.CDLL) -> ctypes.CDLL:
     # log_n, inverse, n_pass; two passes of six plan integers; stream
     dll.optconv_ntt.argtypes = [p] * 7 + [i64] * 4 + [i32] * 15 + [p]
     dll.optconv_ntt.restype = i32
-    # out, q, qinv, r2, r1, perm (or null); the seed's low word; beta,
-    # |qp|, n, threads, rows a block; stream
-    dll.optconv_d1_regen.argtypes = [p] * 6 + [ctypes.c_uint, i32, i32, i64,
-                                               i32, i32, p]
+    # out, q, qinv, r2, r1, perm and row ids (or null); the seed's low
+    # word; beta, |qp| drawn, |qp| of the whole key, n, threads, rows a
+    # block; stream
+    dll.optconv_d1_regen.argtypes = [p] * 7 + [ctypes.c_uint, i32, i32, i32,
+                                               i64, i32, i32, p]
     dll.optconv_d1_regen.restype = i32
     return dll
 

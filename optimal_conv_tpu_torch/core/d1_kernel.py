@@ -39,23 +39,39 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+_ROW_IDS: dict = {}
+
+
+def _row_ids(rows: tuple[int, ...], dev: torch.device) -> torch.Tensor:
+    key = (rows, dev)
+    got = _ROW_IDS.get(key)
+    if got is None:
+        got = torch.tensor(rows, dtype=torch.int64, device=dev)
+        _ROW_IDS[key] = got
+    return got
+
+
 def d1_regen_cuda(seed: int, beta: int, q: torch.Tensor, qinv: torch.Tensor,
                   r2: torch.Tensor, r1: torch.Tensor, n: int,
-                  perm: torch.Tensor | None = None) -> torch.Tensor:
+                  perm: torch.Tensor | None = None,
+                  rows: tuple[int, ...] | None = None,
+                  nqp: int | None = None) -> torch.Tensor:
     """[beta, |qp|, n] uniform residues of `seed` (its low 32 bits, as the
     JAX package's ``PRNGKey(seed & 0xFFFFFFFF)``) on the card, one launch.
     q, qinv, r2, r1: [|qp|, 1] (or [|qp|]) int64 CUDA tensors of one
-    device; perm: None or [n] int64 on that device.  Raises on anything
+    device; perm: None or [n] int64 on that device; rows: None (the whole
+    key) or the |qp| global rows, each below `nqp`, of a key of `nqp`
+    limbs a digit, drawn at their counters there.  Raises on anything
     else."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("d1_regen_cuda needs CUDA tensors")
-    nqp = q.shape[0]
+    nqp_local = q.shape[0]
     tabs = [t.reshape(-1) for t in (q, qinv, r2, r1)]
     for t in tabs:
-        if (t.device != dev or t.dtype != torch.int64 or t.numel() != nqp
+        if (t.device != dev or t.dtype != torch.int64 or t.numel() != nqp_local
                 or not t.is_contiguous()):
-            raise TypeError(f"d1_regen_cuda: contiguous int64 [{nqp}] tables on "
+            raise TypeError(f"d1_regen_cuda: contiguous int64 [{nqp_local}] tables on "
                             f"{dev} expected, got {t.dtype} {tuple(t.shape)} on "
                             f"{t.device}")
     if perm is not None and (perm.device != dev or perm.dtype != torch.int64
@@ -65,14 +81,27 @@ def d1_regen_cuda(seed: int, beta: int, q: torch.Tensor, qinv: torch.Tensor,
                         f"tensor on {dev}")
     if beta < 1 or n < 1:
         raise ValueError(f"d1_regen_cuda: beta {beta}, n {n}")
-    out = torch.empty((beta, nqp, n), dtype=torch.int64, device=dev)
-    rpb = rows_per_block(beta * nqp, n, _sms(dev.index))
+    nqp_g = nqp_local if nqp is None else nqp
+    ids = None
+    if rows is not None:
+        if len(rows) != nqp_local or not all(0 <= r < nqp_g for r in rows):
+            raise ValueError(f"d1_regen_cuda: rows {rows} for {nqp_local} "
+                             f"limbs of a key of {nqp_g}")
+        ids = _row_ids(tuple(rows), dev)
+    elif nqp_g != nqp_local:
+        raise ValueError(f"d1_regen_cuda: {nqp_local} limbs of a key of "
+                         f"{nqp_g} need their rows")
+    out = torch.empty((beta, nqp_local, n), dtype=torch.int64, device=dev)
+    if nqp_local == 0:
+        return out
+    rpb = rows_per_block(beta * nqp_local, n, _sms(dev.index))
     with torch.cuda.device(dev):
         code = cuda_lib.lib().optconv_d1_regen(
             out.data_ptr(), *[t.data_ptr() for t in tabs],
-            None if perm is None else perm.data_ptr(), seed & 0xFFFFFFFF, beta,
-            nqp, n, THREADS, rpb,
+            None if perm is None else perm.data_ptr(),
+            None if ids is None else ids.data_ptr(), seed & 0xFFFFFFFF, beta,
+            nqp_local, nqp_g, n, THREADS, rpb,
             torch._C._cuda_getCurrentRawStream(dev.index))
     cuda_lib.check(code, "d1_regen kernel")
-    STATS.launched(beta * nqp)
+    STATS.launched(beta * nqp_local)
     return out

@@ -68,20 +68,30 @@ def random_bits(seed: int, counters: torch.Tensor) -> torch.Tensor:
 
 def uniform_mont_plain(seed: int, beta: int, q: torch.Tensor,
                        qinv: torch.Tensor, r2: torch.Tensor, r1: torch.Tensor,
-                       n: int, perm: torch.Tensor | None = None
-                       ) -> torch.Tensor:
+                       n: int, perm: torch.Tensor | None = None,
+                       rows: tuple[int, ...] | None = None,
+                       nqp: int | None = None) -> torch.Tensor:
     """[beta, |qp|, n] uniform residues from `seed` on q's device; q, qinv,
     r2 = 2^128 mod q and r1 = 2^64 mod q are [|qp|, 1] columns.  With
-    `perm` ([n] int64), element i of each row is drawn at perm[i]."""
+    `perm` ([n] int64), element i of each row is drawn at perm[i].  With
+    `rows`, the |qp| rows drawn are those global rows of a key of `nqp`
+    limbs a digit, each at its counters there: a rank of a limb-sharded
+    context draws its own rows of the whole key."""
     d1_kernel.STATS.plain_calls += 1
     dev = q.device
-    nqp = q.shape[0]
-    rows = beta * nqp
+    nqp_local = q.shape[0]
+    nqp_g = nqp_local if nqp is None else nqp
+    ids = (torch.arange(nqp_local, dtype=torch.int64, device=dev)
+           if rows is None else torch.tensor(rows, dtype=torch.int64,
+                                             device=dev))
+    grow = (torch.arange(beta, dtype=torch.int64, device=dev)[:, None] * nqp_g
+            + ids).reshape(-1)
     col = (torch.arange(n, dtype=torch.int64, device=dev) if perm is None
            else perm.to(device=dev, dtype=torch.int64))
-    base = torch.arange(rows, dtype=torch.int64, device=dev)[:, None] * n + col
-    w = [random_bits(seed, base + k * rows * n) for k in range(4)]
-    shape = (beta, nqp, n)
+    base = grow[:, None] * n + col
+    plane = beta * nqp_g * n
+    w = [random_bits(seed, base + k * plane) for k in range(4)]
+    shape = (beta, nqp_local, n)
     hi = (w[0].bitwise_left_shift_(32) | w[1]).view(shape)   # wraps like uint64
     lo = (w[2].bitwise_left_shift_(32) | w[3]).view(shape)
     return mm.add_mod(mm.mont_mul_plain(hi, r2, q, qinv),
@@ -90,9 +100,13 @@ def uniform_mont_plain(seed: int, beta: int, q: torch.Tensor,
 
 def uniform_mont(seed: int, beta: int, q: torch.Tensor, qinv: torch.Tensor,
                  r2: torch.Tensor, r1: torch.Tensor, n: int,
-                 perm: torch.Tensor | None = None) -> torch.Tensor:
+                 perm: torch.Tensor | None = None,
+                 rows: tuple[int, ...] | None = None,
+                 nqp: int | None = None) -> torch.Tensor:
     """``uniform_mont_plain`` on the CPU; on the card one launch of the
     ``d1_regen`` kernel, or an error."""
     if q.device.type == "cpu":
-        return uniform_mont_plain(seed, beta, q, qinv, r2, r1, n, perm)
-    return d1_kernel.d1_regen_cuda(seed, beta, q, qinv, r2, r1, n, perm)
+        return uniform_mont_plain(seed, beta, q, qinv, r2, r1, n, perm, rows,
+                                  nqp)
+    return d1_kernel.d1_regen_cuda(seed, beta, q, qinv, r2, r1, n, perm, rows,
+                                   nqp)

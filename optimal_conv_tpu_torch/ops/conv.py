@@ -196,7 +196,9 @@ def _conv_pack(ctx: CkksContext, c0: torch.Tensor, c1: torch.Tensor,
                per_scale: float, bias: torch.Tensor):
     """The fused conv-pack of the JAX package (``_conv_pack_kernel``) as
     tensor code.  c0, c1: [2, N] at level 1; pls: [C, 2, N] NTT +
-    Montgomery, C = max_ob // norm.  Returns the level-0 pair."""
+    Montgomery, C = max_ob // norm.  Returns the level-0 pair.  On a
+    sharded context the rows are the rank's limbs of levels 1 and 0 (a
+    rank may hold neither; it still joins every collective)."""
     p = ctx.params
     ntt = ctx.ntt
     q1 = p.q_moduli[1]
@@ -204,16 +206,13 @@ def _conv_pack(ctx: CkksContext, c0: torch.Tensor, c1: torch.Tensor,
     c_int = int(round(per_scale * q1 / scale_prod))
     if c_int < 1:
         raise ValueError(f"SetScale constant {c_int} < 1")
-    q01, qinv01, r2_01, _ = ntt.tabs((0, 1))
-    q0, qinv0 = ntt.tabs((0,))[:2]
-    c_mont = mm.to_mont(torch.tensor([c_int % q for q in p.q_moduli[:2]],
-                                     dtype=torch.int64, device=ctx.device)[:, None],
-                        q01, qinv01, r2_01)
+    q01, qinv01, r2_01, _ = ntt.tabs(ctx.q_rows(1))
+    q0, qinv0 = ntt.tabs(ctx.q_rows(0))[:2]
+    c_mont = mm.to_mont(ctx._const_col(c_int, 1), q01, qinv01, r2_01)
     steps = _pack_steps(p.log_n, max_ob, norm)
     m0 = mm.mont_mul2(c0[None], pls, c_mont, q01, qinv01)
     m1 = mm.mont_mul2(c1[None], pls, c_mont, q01, qinv01)
-    cur0 = ctx._rescale_poly(m0, 1)               # [C, 1, N]
-    cur1 = ctx._rescale_poly(m1, 1)
+    cur0, cur1 = ctx._rescale_pair(m0, m1, 1)     # [C, 1, N]
     for stp, ls, jj in steps:
         mono = ctx.monomial_pt(1 << ls, 0)
         g = (1 << jj) + 1

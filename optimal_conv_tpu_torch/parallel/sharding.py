@@ -21,6 +21,12 @@ groups of a ``torch.distributed`` device mesh:
          * mod-down: all-gather of the coefficient-form P rows [|P|, N];
          * rescale: broadcast of the coefficient-form top limb [1, N].
 
+The step (``ShardedLayerStep``) places the limbs in contiguous ranges
+split afresh at each level (``limb_split``).  The whole fused layer runs
+on ``parallel/limbs.LimbShardedContext``, the evaluator itself on one
+rank's limbs with a fixed owner per limb; ``dryrun_fused_layer`` drives
+it, as the JAX module's does, and holds it to the single device.
+
 The JAX module's third axis, sp (the coefficients, NTT stages across
 shards), is not here: it needs a distributed NTT.
 
@@ -38,6 +44,7 @@ residue for residue.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -635,20 +642,168 @@ def dryrun(n_devices: int, log_n: int = 8, levels: int = 7,
     return step.bytes
 
 
+# ---------------------------------------------------------------------------
+# the sharded fused layer
+# ---------------------------------------------------------------------------
+
+FUSED_SEED = 7          # the JAX dryrun's context seed
+FUSED_RNG = 5           # and its input generator's
+FUSED_BOOT = dict(k_range=2.0, sin_deg=7, double_angle=1)
+
+
+def fused_layer_legs(ctx: CkksContext, legs=(1, 2, 3), on_stage=None) -> dict:
+    """The JAX ``dryrun_fused_layer``'s legs on `ctx` (single-device or
+    limb-sharded): {leg: output ciphertext}, each the whole
+    ``ops/pipeline.eval_conv_bn_relu``, one ``SplitBootstrapper(k_range=2,
+    sin_deg=7, double_angle=1)`` a log_sparse:
+      1. ``Conv_sparse``, keep repack, in_wid 16, log_sparse 1;
+      2. ``StrConv_sparse``, ``ext_double`` repack on ``gen_comprs_sparse``
+         maps, in_wid 8 → 4, combined log_sparse 1;
+      3. ``Conv_sparse`` at log_sparse 3, in_wid 4.
+    Every leg's input is drawn, in the JAX dryrun's order, from
+    ``default_rng(FUSED_RNG)`` and encrypted by the context's generator,
+    whether the leg runs or not."""
+    from ..ckks.bootstrap import SplitBootstrapper
+    from ..ops import conv as convops
+    from ..ops import repack as rp
+    from ..ops.pipeline import LayerMaps, eval_conv_bn_relu
+
+    p = ctx.params
+    n, kw = p.n, 3
+    rng = np.random.default_rng(FUSED_RNG)
+    inputs = {}
+
+    def enc(img, raw, in_wid, norm):
+        inp = convops.prep_input(img.ravel(), raw, in_wid, n, norm)
+        return ctx.encrypt(ctx.encoder.encode_coeffs(inp, p.scale, 1))
+
+    for leg, in_wid, ls in ((1, 16, None), (2, 8, 2), (3, 4, 3)):
+        if leg == 2:
+            raw_in, out_wid = in_wid - kw // 2, in_wid // 2
+            raw_out = out_wid - kw // 2
+            norm_in = 1 << ls
+            real_ib = n // (in_wid * in_wid) // norm_in
+            norm_out = 2 * norm_in
+            real_ob = n // (out_wid * out_wid) // norm_out
+            img = rng.uniform(-0.5, 0.5, (raw_in, raw_in, real_ib))
+            ker = rng.uniform(-1, 1, (kw, kw, real_ib, real_ob)) / 4.0
+            ct = enc(img, raw_in, in_wid, norm_in)
+            m_idx, r_idx = rp.gen_comprs_sparse(n // 2, in_wid, raw_out,
+                                                ls - 1, 0, 0)
+            args = (ker.ravel(), np.ones(real_ob), np.zeros(real_ob), 0.0,
+                    4.0, in_wid, raw_out, kw, real_ib, real_ob, norm_out, 0,
+                    1, 2, ls - 1, "StrConv_sparse",
+                    LayerMaps(m_idx=m_idx, r_idx=r_idx))
+        else:
+            raw = in_wid - kw // 2
+            max_batch = n // (in_wid * in_wid)
+            ls = max(int(np.log2(max_batch)) - 1, 1) if ls is None else ls
+            norm = 1 << ls
+            real_b = max_batch // norm
+            img = rng.uniform(-0.5, 0.5, (raw, raw, real_b))
+            ker = rng.uniform(-1, 1, (kw, kw, real_b, real_b)) / 4.0
+            ct = enc(img, raw, in_wid, norm)
+            maps = LayerMaps(ext_idx=[rp.gen_keep_vec_sparse(n // 2, in_wid,
+                                                             raw, ls), None])
+            args = (ker.ravel(), np.ones(real_b), np.zeros(real_b), 0.0, 4.0,
+                    in_wid, raw, kw, real_b, real_b, norm, 0, 1, 2, ls,
+                    "Conv_sparse", maps)
+        inputs[leg] = (ct, args)
+    btps, out = {}, {}
+    for leg in sorted(legs):
+        ct, args = inputs[leg]
+        ls = args[14]
+        if ls not in btps:
+            btps[ls] = SplitBootstrapper(ctx, log_sparse=ls, **FUSED_BOOT)
+        out[leg] = eval_conv_bn_relu(ctx, btps, ct, *args, on_stage=on_stage)
+    return out
+
+
+def _ct_digest(ct: Ciphertext) -> list:
+    """[level, scale, sha256 of c0, of c1]: equal across processes iff the
+    ciphertexts are equal residue for residue."""
+    return [ct.level, ct.scale] + [
+        hashlib.sha256(c.contiguous().cpu().numpy().tobytes()).hexdigest()
+        for c in (ct.c0, ct.c1)]
+
+
+def dryrun_fused_layer(n_devices: int, log_n: int = 9, device="cuda",
+                       legs=(1, 2, 3), check: bool = True) -> dict:
+    """Whole fused encrypted layers (conv + BN → CtoS → EvalMod → ReLU →
+    repack → StoC, ``ops/pipeline.eval_conv_bn_relu`` unchanged) with the
+    limb axis of every ciphertext, plaintext and key split over the tp
+    axis of an n-rank (dp, tp) mesh: the JAX module's three legs
+    (``fused_layer_legs``) on ``mini_boot_params(log_n, n_relu=14,
+    stoc_groups=3)``, contexts of seed 7 on every rank
+    (``parallel/limbs.LimbShardedContext``).
+
+    Each leg's output must land at level ≥ 1 and decrypt to finite
+    values and, with `check`, every rank first runs the legs on a
+    single-device context of the same seed and requires the gathered
+    output equal residue for residue, with equal level and scale.  Runs
+    in the current world, whose size must be n (one process without a
+    world for n = 1), on this rank's card unless `device` says "cpu".
+    → {"digests": {leg: [level, scale, sha256 of c0, of c1]}, "comm": the
+    collectives by kind ([calls, payload bytes, bytes moved]), "limbs":
+    this rank's [stage, Q limbs of each ciphertext, P limbs]}."""
+    from ..ckks.params import mini_boot_params
+    from .limbs import LimbShardedContext
+
+    if n_devices != _world_size():
+        raise ValueError(f"dryrun_fused_layer({n_devices}) in a world of "
+                         f"{_world_size()} ranks: start it under torchrun or "
+                         "run_ranks")
+    dev = local_device(device)
+    params = mini_boot_params(log_n, n_relu=14, stoc_groups=3)
+    want = {}
+    if check:
+        single = CkksContext(params, dev, seed=FUSED_SEED)
+        want = {leg: _ct_digest(o)
+                for leg, o in fused_layer_legs(single, legs).items()}
+        del single
+    ctx = LimbShardedContext(params, dev, make_mesh(n_devices),
+                             seed=FUSED_SEED)
+    limbs = []
+
+    def on_stage(name, value):
+        cts = value if isinstance(value, tuple) else (value,)
+        limbs.append([name, [c.c0.shape[-2] for c in cts if c is not None],
+                      len(ctx.p_rows())])
+
+    digests = {}
+    for leg, o in fused_layer_legs(ctx, legs, on_stage).items():
+        got = ctx.decrypt_decode_coeffs(o)
+        if o.level < 1 or not np.all(np.isfinite(got)):
+            raise AssertionError(f"dryrun_fused_layer leg {leg}: level "
+                                 f"{o.level}, finite {np.isfinite(got).all()}")
+        digests[leg] = _ct_digest(ctx.gather_ct(o))
+        if check and digests[leg] != want[leg]:
+            raise AssertionError(f"dryrun_fused_layer leg {leg}: the sharded "
+                                 "layer differs from the single device")
+    return dict(digests=digests, comm=ctx.comm, limbs=limbs)
+
+
 def main(argv=None) -> int:
     """``torchrun --nproc_per_node=k -m optimal_conv_tpu_torch.parallel.sharding``
     on a machine with k cards (or plain ``python -m`` for one): the
-    dryrun on all ranks, its bytes a collective printed by rank 0."""
+    dryrun on all ranks, its bytes a collective printed by rank 0.  With
+    ``--fused``, ``dryrun_fused_layer`` instead (its default log_n 9):
+    each leg's digest, the collectives by kind and the limbs by stage."""
     ap = argparse.ArgumentParser(description=main.__doc__)
-    ap.add_argument("--log-n", type=int, default=8)
+    ap.add_argument("--log-n", type=int, default=None)
     ap.add_argument("--levels", type=int, default=7)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--fused", action="store_true")
     args = ap.parse_args(argv)
     world = init_distributed()
     try:
-        moved = dryrun(world, args.log_n, args.levels, device=args.device)
+        if args.fused:
+            res = dryrun_fused_layer(world, args.log_n or 9, args.device)
+        else:
+            res = {"bytes": dryrun(world, args.log_n or 8, args.levels,
+                                   device=args.device)}
         if not dist.is_initialized() or dist.get_rank() == 0:
-            print(json.dumps({"world": world, "bytes": moved}))
+            print(json.dumps({"world": world, **res}))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -160,6 +160,37 @@ def test_d1_regen_kernel_equals_plain(dev, tables16, level, permuted):
     assert bool((got >= 0).all()) and bool((got < q).all())
 
 
+@pytest.mark.parametrize("permuted", [False, True], ids=["plain_key", "galh"])
+@pytest.mark.parametrize("rank", [0, 1, 3])
+def test_d1_regen_kernel_row_subset(dev, tables16, rank, permuted):
+    """A tp-4 rank's rows of the level-27 key ([6,33,N]; LimbPlacement),
+    drawn alone at their counters in the key: one launch, equal to the
+    plain version's rows and to the whole draw's rows."""
+    from optimal_conv_tpu_torch.parallel.limbs import LimbPlacement
+
+    p, ntt = tables16
+    level = 27
+    qp = p.qp_idx(level)
+    beta = len(p.digits(level))
+    pl = LimbPlacement(p, 4)
+    mine = pl.q_rows(level, rank) + pl.p_rows(rank)
+    rows = tuple(qp.index(i) for i in mine)
+    perm = None
+    if permuted:
+        g_inv = pow(rot_to_galois(3, p.log_n), -1, 2 * p.n)
+        perm = torch.from_numpy(galois_perm_ntt(p.log_n, g_inv).copy()).to(dev)
+    seed = (1 << 40) + rank
+    whole = threefry.uniform_mont(seed, beta, *ntt.tabs(qp), p.n, perm)
+    d1_kernel.STATS.reset()
+    got = threefry.uniform_mont(seed, beta, *ntt.tabs(mine), p.n, perm,
+                                rows=rows, nqp=len(qp))
+    assert (d1_kernel.STATS.launches, d1_kernel.STATS.plain_calls) == (1, 0)
+    assert got.shape == (beta, len(mine), p.n)
+    assert torch.equal(got, whole[:, list(rows)])
+    assert torch.equal(got, threefry.uniform_mont_plain(
+        seed, beta, *ntt.tabs(mine), p.n, perm, rows=rows, nqp=len(qp)))
+
+
 def test_d1_regen_kernel_rejects_bad_input(dev, tables16):
     p, ntt = tables16
     tabs = ntt.tabs(p.qp_idx(0))
