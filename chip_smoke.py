@@ -119,7 +119,18 @@ the port's main path at logN=16 on the Go fork's modulus chain:
     gloo, every rank's gathered output equal to the single device's
     (which is held to the layer bars), then ``dryrun_fused_layer`` on 2
     ranks; walls by rank, rank 0's device ms, the collectives of one
-    layer, limbs by stage, key bytes and peak by rank.
+    layer, limbs by stage, key bytes and peak by rank;
+  * the sp (coefficient) axis (``coeff_sharding_path``, after
+    ``sharded_layer_path``): ``parallel/coeffs.py``'s distributed NTT
+    (forward shard against the whole NTT's columns, inverse, round trip),
+    the sharded Galois gather for rotations 1 and -1, the rotated key
+    switch of the JAX sp test and the layer step at levels 27 and 3, on
+    ``CoeffShardedContext`` ranks sharing the one card over gloo: tp 1 x
+    sp 4, tp 2 x sp 2 (levels 27 and 3) and dp 2 x tp 1 x sp 2 in a world
+    of 4, the JAX test's dp 2 x tp 2 x sp 2 in a world of 8; every result
+    equal to the single device's residue for residue (by digest across
+    processes); warm walls of the step by rank, rank 0's device ms, the
+    transfers and bytes by kind and the launches.
 
 The whole-model paths run under the default key settings: every path
 makes its keys seed-compressed at logN 16, and each ``memory`` line
@@ -184,7 +195,8 @@ from optimal_conv_tpu_torch.core import (cuda_lib, d1_kernel, mont_kernel,
                                          ntt_kernel, threefry)
 from optimal_conv_tpu_torch.core import modmath as mm
 from optimal_conv_tpu_torch.core.ntt import (NttContext, _ntt_fwd, _ntt_inv,
-                                             galois_perm_ntt, rot_to_galois)
+                                             galois_perm_ntt, ntt_cross_plain,
+                                             rot_to_galois)
 from optimal_conv_tpu_torch.models import imagenet as imagenet_mod
 from optimal_conv_tpu_torch.models import resnet as resnet_mod
 from optimal_conv_tpu_torch.models.imagenet import (ImagenetFinalFastRunner,
@@ -200,6 +212,7 @@ from optimal_conv_tpu_torch.ops.debug import precision_stats
 from optimal_conv_tpu_torch.ops.pipeline import LayerMaps, eval_conv_bn_relu
 from optimal_conv_tpu_torch.ops.relu import eval_relu, relu_np
 from optimal_conv_tpu_torch.models.plain import NUM_BLOCKS
+from optimal_conv_tpu_torch.parallel import coeffs as coeffs_mod
 from optimal_conv_tpu_torch.parallel import sharding as shd
 from optimal_conv_tpu_torch.parallel.limbs import (LimbPlacement,
                                                    LimbShardedContext)
@@ -209,7 +222,8 @@ from optimal_conv_tpu_torch.utils.timing import cuda_ms, cuda_ms_cold
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "ref_conv_3_0_1.json")
 STATS = [mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV,
-         d1_kernel.STATS]
+         d1_kernel.STATS, ntt_kernel.STATS_CROSS]
+MAIN = STATS[:4]               # K1, K2, K3, d1_regen: every path but sp's
 K123 = STATS[:3]
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # per pipe (ALU, FMA); Hopper white paper
@@ -219,7 +233,8 @@ INT32_LANES_PER_SM = 64        # per pipe (ALU, FMA); Hopper white paper
 # sm_90a (kernel_info on an H100 machine); used only where cuobjdump is
 # missing
 INT32_FALLBACK = {"fwd": (39, 20), "inv": (35, 19), "mul": (33, 17),
-                  "mul2": (56, 28), "d1": (347, 224)}
+                  "mul2": (56, 28), "d1": (347, 224), "xmul": (39, 21),
+                  "xadd": (8, 6)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -635,6 +650,112 @@ def check_d1(dev, p, card):
     return dict(max_abs_err=err, shapes=rows, **rows[0])
 
 
+def check_cross(dev, p, rng, card, k23) -> dict:
+    """The sp axis's kernels against their plain versions on the card:
+    the NTT cross stage (forward and inverse, lower and upper half) at
+    [28, N/2] (the limbs of level 27 at sp 2) and [6, 33, N/4] (its six
+    key-switch digits at sp 4), and K2/K3 at log_n - 1 and log_n - 2 on
+    a shard's twiddle tables ([6, 33, N/sp], the inverse with the whole
+    ring's n^-1), each equal to its plain version and timed beside its
+    bound; the K2/K3 rows join `k23`'s shapes.  → the cross stage's row
+    of the kernels line."""
+    ntt = NttContext(p.moduli, p.log_n, dev)
+    err, rows = 0.0, []
+    for sp, idx, batch in ((2, p.q_idx(27), 1), (4, p.qp_idx(27), 6)):
+        nl = p.n // sp
+        shape = f"[{batch},{len(idx)},{nl}]"
+        row_limb = ntt._row_limb(idx, batch)
+        q, qinv = ntt.tabs(idx)[:2]
+        mine, theirs = (residues([p.moduli[i] for i in idx], (batch,), nl, rng,
+                                 dev) for _ in range(2))
+        for inverse in (False, True):
+            col = coeffs_mod.cross_stages(sp, sp - 1, inverse)[-1][2]
+            w = (ntt.ipsi_br if inverse else ntt.psi_br)[:, col].contiguous()
+            w_rows = w[list(idx)][:, None]
+            for upper in (False, True):
+                what = (f"ntt_cross {shape} {'inverse' if inverse else 'forward'}"
+                        f" {'upper' if upper else 'lower'}")
+
+                def run():
+                    return ntt_kernel.ntt_cross_cuda(
+                        mine, theirs, row_limb, ntt.q_vec, ntt.qinv_vec, w,
+                        upper, inverse)
+
+                def plain():
+                    return ntt_cross_plain(mine, theirs, w_rows, q, qinv,
+                                           upper, inverse)
+
+                before = (ntt_kernel.STATS_CROSS.launches,
+                          ntt_kernel.STATS_CROSS.plain_calls)
+                got = run()
+                check((ntt_kernel.STATS_CROSS.launches,
+                       ntt_kernel.STATS_CROSS.plain_calls)
+                      == (before[0] + 1, before[1]),
+                      f"{what}: not one launch, or a plain call")
+                want = plain()
+                check(torch.equal(got, want), f"{what} differs from plain")
+                err = max(err, max_err(got, want))
+                ms = cuda_ms(run, dev, iters=50)
+                plain_ms = cuda_ms(plain, dev, iters=3, warmup=1)
+                elems = batch * len(idx) * nl
+                # two halves read, one written; q, qinv, w read once a row
+                bnd = card.bound(8 * (3 * elems + 3 * batch * len(idx)),
+                                 elems * card.slots["xadd" if inverse and not upper
+                                                    else "xmul"])
+                rows.append(dict(shape=shape, inverse=inverse, upper=upper,
+                                 ms=ms, plain_ms=plain_ms, library_ms=None,
+                                 **bnd))
+                print(f"{what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (bytes "
+                      f"{bnd['bytes_ms']:.4f}, int32 {bnd['int32_ms']:.4f}); "
+                      f"max_abs_err {max_err(got, want)}")
+    # K2/K3 on shard tables: the local sub-transform of the level-27 digits
+    qp = p.qp_idx(27)
+    q, qinv = ntt.tabs(qp)[:2]
+    sel = torch.tensor(qp, device=dev)
+    for sp in (2, 4):
+        log_cols = p.log_n - (sp.bit_length() - 1)
+        x = residues([p.moduli[i] for i in qp], (6,), 1 << log_cols, rng, dev)
+        for k, inverse in enumerate((False, True)):
+            name = "ntt_inv" if inverse else "ntt_fwd"
+            tab = coeffs_mod.shard_twiddles(ntt.ipsi_br if inverse
+                                            else ntt.psi_br, sp, sp - 1)
+
+            def run():
+                return ntt_kernel.ntt_cuda(x, ntt._row_limb(qp, 6), ntt.q_vec,
+                                           ntt.qinv_vec, tab, ntt.n_inv,
+                                           log_cols, inverse)
+
+            def plain():
+                t = tab.index_select(0, sel)
+                if inverse:
+                    return _ntt_inv(x, t, ntt.n_inv.index_select(0, sel)[:, None],
+                                    q, qinv, log_cols)
+                return _ntt_fwd(x, t, q, qinv, log_cols)
+
+            got, want = run(), plain()
+            check(torch.equal(got, want),
+                  f"{name} on a shard table at logN {log_cols} differs from plain")
+            k23[name]["max_abs_err"] = max(k23[name]["max_abs_err"],
+                                           max_err(got, want))
+            ms = cuda_ms(run, dev, iters=20)
+            plain_ms = cuda_ms(plain, dev, iters=3, warmup=1)
+            bnd = card.ntt_bound(6 * len(qp), len(qp), log_cols, inverse)
+            shape = f"[6,33,{1 << log_cols}] shard table, sp {sp}"
+            k23[name]["shapes"].append(dict(shape=shape, ms=ms, warm_l2_ms=ms,
+                                            plain_ms=plain_ms, **bnd))
+            print(f"K{2 + k} {name} {shape}: {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+                  f"(bytes {bnd['bytes_ms']:.4f}, int32 {bnd['int32_ms']:.4f}); "
+                  "equal to plain")
+    del ntt
+    # no PyTorch call computes a modular NTT stage; the headline is the
+    # forward lower half of the digits at sp 4, the key switch's shape
+    head = next(r for r in rows if r["shape"].startswith("[6,")
+                and not r["inverse"] and not r["upper"])
+    return dict(max_abs_err=err, shapes=rows, **head)
+
+
 def main_path(dev, card):
     """Phases 4-5: conv at the four geometries and the FC head."""
     p = boot_params(16)
@@ -742,7 +863,8 @@ def where_time_goes(dev, card):
 def _profile_groups(fn, dev):
     """One call of fn() under ``torch.profiler``: → (wall ms, device
     kernel ms, {group: {launches, ms}}) with the device kernels grouped
-    into K1, K2, K3, d1_regen and PyTorch's own, and the copies and
+    into K1, K2, K3, d1_regen, the NTT cross stage and PyTorch's own,
+    and the copies and
     memsets of the runtime ("copies": gloo stages each collective through
     host memory with them).  Reads the profiler's raw events
     (``prof.profiler.kineto_results``, private; checked on torch
@@ -767,7 +889,8 @@ def _profile_groups(fn, dev):
     groups: dict = {}
     for ev in raw:
         name = ev.name()
-        key = ("ntt_pass<inverse>" if "ntt_pass<true>" in name
+        key = ("ntt_cross" if "ntt_cross" in name else
+               "ntt_pass<inverse>" if "ntt_pass<true>" in name
                or "ntt_pass<(bool)1>" in name else
                "ntt_pass<forward>" if "ntt_pass" in name else
                "mont_mul_kernel" if "mont_mul" in name else
@@ -1677,7 +1800,7 @@ def _sharded_case(ctx, mesh, level, batch, ct, pt, swk, profile) -> dict:
                 bytes={k: list(v) for k, v in step.bytes.items()})
 
 
-def _path_counts(what: str, dev, need=STATS) -> dict:
+def _path_counts(what: str, dev, need=MAIN) -> dict:
     """This process's counters since they were zeroed: on the card every
     kernel of `need` launched (a path that makes switching keys launches
     d1_regen, every key's uniform half being drawn by it; a warm run on
@@ -2035,9 +2158,185 @@ def sharded_layer_path(dev, card) -> dict:
     print(f"sharded layer path launches (all ranks): "
           f"{json.dumps(total['launches'])}; the path took "
           f"{time.perf_counter() - t_path:.1f} s")
-    for s in STATS:
+    for s in MAIN:
         check(total["launches"][s.name] > 0, f"{s.name}: no launch on the "
               "sharded layer path")
+    for s in STATS:
+        s.reset()
+    torch.cuda.empty_cache()
+    return total
+
+
+COEFF_SEED = 41
+COEFF_LEVELS = (27, 3)
+COEFF_ROT = 1
+# (world, ((mesh, (dp, tp), sp, batch, levels), ...)), each world's ranks
+# on the one card over gloo: the (tp, sp) meshes of a world of 4, and the
+# JAX sp test's (dp, tp, sp) = (2, 2, 2) in a world of 8
+COEFF_RUNS = ((4, (("tp 1 x sp 4", (1, 1), 4, 1, (27,)),
+                   ("tp 2 x sp 2", (1, 2), 2, 1, COEFF_LEVELS),
+                   ("dp 2 x tp 1 x sp 2", (2, 1), 2, 2, (27,)))),
+              (8, (("dp 2 x tp 2 x sp 2", (2, 2), 2, 2, (27,)),)))
+
+
+def coeff_inputs(ctx) -> dict:
+    """{level: (ct, pt, Galois key)} of the sp path, drawn in one order
+    from the context's seed: the same on every context of the seed."""
+    p = ctx.params
+    rng = np.random.default_rng(COEFF_SEED)
+    g = rot_to_galois(COEFF_ROT, p.log_n)
+    out = {}
+    for level in COEFF_LEVELS:
+        ct = ctx.encrypt(ctx.encoder.encode_coeffs(rng.uniform(-1, 1, p.n),
+                                                   p.scale, level))
+        pt = ctx.encoder.encode_coeffs(rng.uniform(-1, 1, p.n), p.scale, level)
+        out[level] = (ct, pt, ctx.galois_key(g, level))
+    return out
+
+
+def coeff_rank(rank: int, meshes, device: str) -> dict:
+    """One rank of an sp-path world (spawned by ``shd.run_ranks``, the
+    kernels built by the parent): on each mesh of `meshes` a fresh
+    ``CoeffShardedContext`` of the path's seed (keys made whole from
+    their seeds on every rank, then sliced), ``coeff_case``'s checks at
+    each level as digests (one pair an element of the batch), the sp
+    transfers of the checks and of one step, the step's launches, three
+    warm walls of the step (ranks aligned by a barrier before each) and,
+    on rank 0, its device ms.  Counters from the start; every kernel
+    must launch."""
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    cuda_lib.lib()
+    for s in STATS:
+        s.reset()
+    out = {}
+    for kind, shape, sp, batch, levels in meshes:
+        mesh = shd.build_mesh(shape, sp=sp)
+        ctx = coeffs_mod.CoeffShardedContext(boot_params(16), dev, mesh,
+                                             seed=COEFF_SEED)
+        inputs = coeff_inputs(ctx)
+        for lv in levels:
+            ct, pt, swk = inputs[lv]
+            got = coeffs_mod.coeff_case(ctx, mesh, lv, ct, pt, swk, COEFF_ROT,
+                                        batch)
+            digests = {c: [_digest(got[c][:, i]) for i in range(batch)]
+                       for c in coeffs_mod.CHECKS}
+            step = shd.ShardedLayerStep(ctx, lv, mesh)
+            lay = shd.batch_sharding(mesh, lv + 1, batch)
+            full = (batch,) + tuple(ct.c0.shape)
+            args = (lay.take(ct.c0.expand(full), mesh),
+                    lay.take(ct.c1.expand(full), mesh), step.shard_pt(pt.poly),
+                    ctx.galois_perm(rot_to_galois(COEFF_ROT, ctx.params.log_n)),
+                    *step.shard_key(swk))
+
+            def run():
+                return step(*args)
+
+            ctx.ntt.comm.clear()
+            before = [s.launches for s in STATS]
+            run()
+            _sync(dev)
+            launches = {s.name: s.launches - b for s, b in zip(STATS, before)}
+            comm_step = {k: list(v) for k, v in ctx.ntt.comm.items()}
+            walls = []
+            for _ in range(3):
+                dist.barrier()
+                _sync(dev)
+                t0 = time.perf_counter()
+                run()
+                _sync(dev)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            dist.barrier()
+            device_ms = groups = None
+            if rank == 0:
+                _, device_ms, groups = _profile_groups(run, dev)
+            else:
+                run()
+            _sync(dev)
+            out[f"{kind}, level {lv}"] = dict(
+                digests=digests, shard=list(args[0].shape), wall_ms=walls,
+                device_ms=device_ms, groups=groups, launches=launches,
+                comm_checks=got["comm"], comm_step=comm_step,
+                bytes_step={k: list(v) for k, v in step.bytes.items()})
+        del ctx, inputs
+        torch.cuda.empty_cache()
+    return dict(cases=out, counts=_path_counts(f"coeff sharding path rank "
+                                               f"{rank}", dev, need=STATS))
+
+
+def coeff_sharding_path(dev, card) -> dict:
+    """Phase 18, after ``sharded_layer_path``: the sp (coefficient) axis
+    (``parallel/coeffs.py``) at logN 16 on the fork's 28 + 5 limbs under
+    the default key settings.  First the single device on a fresh
+    ``boot_params(16)`` context of the path's seed: each check of
+    ``coeffs.coeff_reference`` at levels 27 and 3 as digests, and the
+    step ``rescale(rotate(mul_plain(ct, pt), 1))``'s warm walls and device
+    ms.  Then the worlds of ``COEFF_RUNS`` on the one card over gloo
+    (``coeff_rank``): every rank's gathered result of every check must
+    equal the single device's residue for residue.  Prints walls by rank,
+    rank 0's device ms (kernels and the runtime's copies apart), the sp
+    transfers and tp collectives of one step by kind, the launches and
+    the path's seconds.  Gloo stages every transfer through host memory:
+    the walls time host staging, not NVLink."""
+    t_path = time.perf_counter()
+    cuda_lib.lib()
+    torch.cuda.empty_cache()
+    ctx = CkksContext(boot_params(16), dev, seed=COEFF_SEED)
+    want, single = {}, {}
+    for lv, (ct, pt, swk) in coeff_inputs(ctx).items():
+        ref = coeffs_mod.coeff_reference(ctx, lv, ct, pt, swk, COEFF_ROT)
+        want[lv] = {c: _digest(t) for c, t in ref.items()}
+
+        def step(ct=ct, pt=pt):
+            return ctx.rescale(ctx.rotate(ctx.mul_plain(ct, pt), COEFF_ROT))
+
+        walls = [_wall_ms(step, dev, iters=1) for _ in range(3)]
+        _, busy, groups = _profile_groups(step, dev)
+        single[lv] = dict(wall_ms=walls, device_ms=busy,
+                          kernel_ms=_kernel_ms(busy, groups), groups=groups)
+        print(f"coeff sharding path, single device, level {lv}, {card}: "
+              + json.dumps(single[lv]))
+    del ctx
+    torch.cuda.empty_cache()
+    total = dict(launches={}, by_rows={})
+    for world, meshes in COEFF_RUNS:
+        t0 = time.perf_counter()
+        ranks = shd.run_ranks(coeff_rank, world, (meshes, str(dev)),
+                              backend="gloo", timeout=600)
+        secs = time.perf_counter() - t0
+        for case in ranks[0]["cases"]:
+            lv = int(case.rsplit(" ", 1)[1])
+            got = [r["cases"][case] for r in ranks]
+            for r, c in enumerate(got):
+                for check_name, digests in c["digests"].items():
+                    check(all(d == want[lv][check_name] for d in digests),
+                          f"coeff sharding path {case}, rank {r}: {check_name} "
+                          "differs from the single device")
+            g0 = got[0]
+            summary = dict(
+                world=world, shard_rank0=g0["shard"],
+                wall_ms_by_rank=[c["wall_ms"] for c in got],
+                device_ms_rank0=g0["device_ms"],
+                kernel_ms_rank0=_kernel_ms(g0["device_ms"], g0["groups"]),
+                single=single[lv], groups_rank0=g0["groups"],
+                sp_transfers_one_step_rank0=g0["comm_step"],
+                tp_bytes_one_step_rank0=g0["bytes_step"],
+                sp_transfers_checks_rank0=g0["comm_checks"],
+                launches_one_step_rank0=g0["launches"])
+            print(f"coeff sharding path {case} ({world} processes, gloo, "
+                  f"{card}): every check equal to the single device residue "
+                  "for residue on every rank; " + json.dumps(summary))
+        for r in ranks:
+            _add_counts(total, r["counts"])
+        print(f"coeff sharding path: world {world} took {secs:.1f} s "
+              "(processes, contexts, keys, checks, timing); launches by rank "
+              + json.dumps([r["counts"]["launches"] for r in ranks]))
+    print(f"coeff sharding path launches (all ranks): "
+          f"{json.dumps(total['launches'])}; the path took "
+          f"{time.perf_counter() - t_path:.1f} s")
+    for s in STATS:
+        check(total["launches"][s.name] > 0, f"{s.name}: no launch on the "
+              "coeff sharding path")
         s.reset()
     torch.cuda.empty_cache()
     return total
@@ -2550,7 +2849,7 @@ def bl_path(ctx, dev, card, fam) -> dict:
     return counts
 
 
-def _read_counts(path: str, dev, need=STATS) -> dict:
+def _read_counts(path: str, dev, need=MAIN) -> dict:
     """The wrappers' counters after one path (``_path_counts``), printed,
     then zeroed for the next path."""
     counts = _path_counts(path, dev, need)
@@ -2582,6 +2881,7 @@ def main() -> int:
     k1 = check_mont(dev, p, rng, rates)
     k23 = check_ntt(dev, p, rng, rates)
     d1 = check_d1(dev, p, rates)
+    cross = check_cross(dev, p, rng, rates, k23)
 
     for s in STATS:
         s.reset()
@@ -2627,6 +2927,7 @@ def main() -> int:
     paths.update(keys_path(dev, card))
     paths["sharding path"] = sharding_path(dev, card)
     paths["sharded layer path"] = sharded_layer_path(dev, card)
+    paths["coeff sharding path"] = coeff_sharding_path(dev, card)
     paths["resnet path"] = resnet_path(dev, card)
     torch.cuda.empty_cache()
     paths["fast path"] = fast_path(dev, card)
@@ -2648,7 +2949,12 @@ def main() -> int:
                  replaces="optimal_conv_tpu/ckks/context.py:298",
                  note="on the TPU an XLA composite (jax.random.bits threefry, "
                  "two Montgomery products, a gather), not a Pallas kernel",
-                 **d1)]
+                 **d1),
+            dict(name="ntt_cross", route="cuda", source=src + "ntt.cu",
+                 replaces="optimal_conv_tpu/core/pallas_ntt.py:131",
+                 note="the NTT stages that cross column shards on an sp mesh: "
+                 "on the TPU, GSPMD's stage exchanges around K2/K3 "
+                 "(_fwd_kernel :131, _inv_kernel :199)", **cross)]
     for row in rows:
         name = row["name"]
         row["launches"] = sum(c["launches"][name] for c in paths.values())

@@ -487,6 +487,11 @@ class CkksContext:
             self._perm_cache[g] = got
         return got
 
+    def _permute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """φ_g on NTT-domain rows by its ``galois_perm`` (a coefficient-
+        sharded context moves shards: ``parallel/coeffs.py``)."""
+        return nttmod.apply_galois_ntt(x, perm)
+
     # ------------------------------------------------------------------
     # key switching core
     # ------------------------------------------------------------------
@@ -726,8 +731,8 @@ class CkksContext:
         lvl = a.level
         swk = self.galois_key(g, lvl)
         perm = self.galois_perm(g)
-        c0p = nttmod.apply_galois_ntt(a.c0, perm)
-        c1p = nttmod.apply_galois_ntt(a.c1, perm)
+        c0p = self._permute(a.c0, perm)
+        c1p = self._permute(a.c1, perm)
         ks0, ks1 = self.keyswitch(c1p, lvl, swk)
         return Ciphertext(mm.add_mod(c0p, ks0, self._q(lvl)), ks1, level=lvl,
                           scale=a.scale)

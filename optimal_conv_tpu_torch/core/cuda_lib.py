@@ -95,6 +95,10 @@ def _bind(dll: ctypes.CDLL) -> ctypes.CDLL:
     # log_n, inverse, n_pass; two passes of six plan integers; stream
     dll.optconv_ntt.argtypes = [p] * 7 + [i64] * 4 + [i32] * 15 + [p]
     dll.optconv_ntt.restype = i32
+    # mine, theirs, out, row_limb, q, qinv, w; rows, log_n, upper, inverse;
+    # stream
+    dll.optconv_ntt_cross.argtypes = [p] * 7 + [i64, i32, i32, i32, p]
+    dll.optconv_ntt_cross.restype = i32
     # out, q, qinv, r2, r1, perm and row ids (or null); the seed's low
     # word; beta, |qp| drawn, |qp| of the whole key, n, threads, rows a
     # block; stream

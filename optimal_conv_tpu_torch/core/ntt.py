@@ -188,6 +188,23 @@ def _ntt_inv(a, ipsi_br, n_inv, q, qinv, log_n):
     return mm.mont_mul_plain(a, n_inv, q, qinv)
 
 
+def ntt_cross_plain(mine, theirs, w, q, qinv, upper: bool, inverse: bool):
+    """One cross stage of a transform split over column shards: this
+    rank's half of the stage's butterflies and its partner's, [..., l, n]
+    each, w / q / qinv [l, 1] → this rank's output half.  The forward
+    stage's lower rank keeps u + w·v and the upper u − w·v; the inverse
+    stage's lower keeps u + v and the upper (u − v)·w (u the lower half,
+    v the upper).  The card's version is ``ntt_kernel.ntt_cross_cuda``."""
+    ntt_kernel.STATS_CROSS.plain_calls += 1
+    if not inverse:
+        if upper:
+            return mm.sub_mod(theirs, mm.mont_mul_plain(mine, w, q, qinv), q)
+        return mm.add_mod(mine, mm.mont_mul_plain(theirs, w, q, qinv), q)
+    if upper:
+        return mm.mont_mul_plain(mm.sub_mod(theirs, mine, q), w, q, qinv)
+    return mm.add_mod(mine, theirs, q)
+
+
 # ---------------------------------------------------------------------------
 # Galois automorphisms  X → X^g  (g odd, mod 2N)
 # ---------------------------------------------------------------------------

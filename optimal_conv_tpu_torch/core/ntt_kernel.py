@@ -19,6 +19,11 @@ of 64-bit Montgomery butterflies need about 0.9 ms at the card's peak,
 the bytes 0.24 ms; ``PERF.md`` has both beside the measured times.
 ``plan`` works out the passes; ``csrc/ntt.cu`` has the schedule inside a
 pass.
+
+On an sp mesh (``parallel/coeffs.py``) a transform of a column shard is
+K2/K3 at log_n − log2(sp) on the shard's twiddle table, plus
+``ntt_cross_cuda``: one launch a stage that crosses shards, bytes-bound
+(two halves read, one written).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from . import cuda_lib
 
 STATS_FWD = cuda_lib.KernelStats("ntt_fwd")
 STATS_INV = cuda_lib.KernelStats("ntt_inv")
+STATS_CROSS = cuda_lib.KernelStats("ntt_cross")
 
 MAX_LOG_N = 17
 SMEM_LIMIT = 232448        # bytes of shared memory one block can have
@@ -152,4 +158,57 @@ def ntt_cuda(a: torch.Tensor, row_limb: torch.Tensor, q: torch.Tensor,
                                *ints, stream)
     cuda_lib.check(code, "inverse NTT kernel" if inverse else "NTT kernel")
     (STATS_INV if inverse else STATS_FWD).launched(rows)
+    return out
+
+
+def ntt_cross_cuda(mine: torch.Tensor, theirs: torch.Tensor,
+                   row_limb: torch.Tensor, q: torch.Tensor, qinv: torch.Tensor,
+                   w: torch.Tensor, upper: bool, inverse: bool) -> torch.Tensor:
+    """One cross stage of an NTT split over column shards, on the card
+    (``optconv_ntt_cross``): this rank's half `mine` and its partner's
+    `theirs`, both [..., l, n] int64 canonical residues → this rank's
+    output half (``core.ntt.ntt_cross_plain`` says which).
+
+    row_limb: int32 [rows] global limb of each row of the flattened
+    [rows, n] view; q, qinv, w: int64 [L] indexed by limb (w the stage's
+    twiddle of each limb, Montgomery form).  A view that is not
+    contiguous or not 16-byte aligned is copied once."""
+    dev = mine.device
+    if dev.type != "cuda":
+        raise ValueError("ntt_cross_cuda needs a CUDA tensor")
+    if (mine.dtype != torch.int64 or theirs.dtype != torch.int64
+            or mine.shape != theirs.shape or mine.dim() < 2):
+        raise ValueError("ntt_cross_cuda: two int64 [..., l, n] halves of one "
+                         f"shape expected, got {mine.dtype} {tuple(mine.shape)}"
+                         f" and {theirs.dtype} {tuple(theirs.shape)}")
+    n = mine.shape[-1]
+    log_n = n.bit_length() - 1
+    if n < 2 or n != 1 << log_n or log_n > MAX_LOG_N:
+        raise ValueError(f"ntt_cross_cuda: width {n} is not a power of two in "
+                         f"2 .. 2^{MAX_LOG_N}")
+    rows = mine.numel() // n
+    if row_limb.dtype != torch.int32 or row_limb.numel() != rows:
+        raise ValueError("ntt_cross_cuda: row_limb must be int32 with one "
+                         "entry per row")
+    for t in (row_limb, q, qinv, w):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("ntt_cross_cuda: tables must be contiguous on "
+                             f"{dev}")
+    if theirs.device != dev:
+        raise ValueError(f"ntt_cross_cuda: halves on {dev} and {theirs.device}")
+    mine, theirs = (t if t.data_ptr() % 16 == 0 else t.clone()
+                    for t in (mine.contiguous(), theirs.contiguous()))
+    out = torch.empty(mine.shape, dtype=torch.int64, device=dev)
+    if rows == 0:
+        return out
+    lib = cuda_lib.lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.optconv_ntt_cross(mine.data_ptr(), theirs.data_ptr(),
+                                     out.data_ptr(), row_limb.data_ptr(),
+                                     q.data_ptr(), qinv.data_ptr(),
+                                     w.data_ptr(), rows, log_n, int(upper),
+                                     int(inverse), stream)
+    cuda_lib.check(code, "NTT cross-stage kernel")
+    STATS_CROSS.launched(rows)
     return out

@@ -317,3 +317,109 @@ extern "C" int optconv_ntt(const void* in_, void* out_, const void* row_limb_,
   return (int)launch<true>(out, out, row_limb, q, qinv, tw, ninv, l, l * n, n,
                            log_n, ps[1], 1, stream);
 }
+
+// ---------------------------------------------------------------------------
+// One cross stage of an NTT whose columns are split over sp ranks.
+//
+// Part of K2/K3's work on an sp mesh (core/ntt_kernel.ntt_cross_cuda):
+// rank s holds the columns [s n, (s+1) n) of every row, and the first
+// log2(sp) forward stages (the last log2(sp) inverse ones) pair a column
+// with the same column of a partner rank.  Each rank holds one half of
+// every butterfly of the stage, `mine`, has received the partner's half,
+// `theirs`, and keeps its own output half:
+//
+//   forward, lower   mine + w * theirs      inverse, lower   mine + theirs
+//   forward, upper   theirs - w * mine      inverse, upper   (theirs - mine) * w
+//
+// w is one twiddle a row (Montgomery form, selected by the row's limb),
+// the same psi_br / ipsi_br entry that the whole in-place network reads.
+// Inputs are canonical residues and so are the outputs: the result is the
+// same residue the canonical arithmetic of core/ntt.ntt_cross_plain gives.
+// Both ranks multiply (the lower rank w * v, the upper w * v of its own
+// v): each sends its raw half, so a stage is one exchange and one launch.
+//
+// What bounds it: the bytes.  Two 8-byte reads and one write an element
+// against one Montgomery product (about 20 issue slots): on an H100 the
+// memory takes about six times as long as the integer pipe.  So the
+// kernel is one grid-stride pass of 16-byte loads and stores, two
+// elements a thread, with the three per-limb constants read once a pair.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kCrossThreads = 256;
+
+template <bool INV, bool UPPER>
+__device__ __forceinline__ uint64_t cross_one(uint64_t m, uint64_t t,
+                                              uint64_t w, uint64_t q,
+                                              uint64_t qi) {
+  if (!INV) {
+    if (!UPPER) return cond_sub(m + mont_mul(t, w, q, qi), q);
+    const uint64_t v = mont_mul(m, w, q, qi);
+    return t >= v ? t - v : t + q - v;
+  }
+  if (!UPPER) return cond_sub(m + t, q);
+  return mont_mul(t + q - m, w, q, qi);  // t - m + q in [1, 2q)
+}
+
+template <bool INV, bool UPPER>
+__global__ void __launch_bounds__(kCrossThreads)
+ntt_cross(const ulonglong2* __restrict__ mine,
+          const ulonglong2* __restrict__ theirs, ulonglong2* __restrict__ out,
+          const int* __restrict__ row_limb, const uint64_t* __restrict__ q_,
+          const uint64_t* __restrict__ qinv_, const uint64_t* __restrict__ w_,
+          long long pairs, int log_pairs_row) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < pairs; i += step) {
+    const int limb = row_limb[i >> log_pairs_row];
+    const uint64_t q = q_[limb], qi = qinv_[limb], w = w_[limb];
+    const ulonglong2 a = mine[i], b = theirs[i];
+    ulonglong2 r;
+    r.x = cross_one<INV, UPPER>(a.x, b.x, w, q, qi);
+    r.y = cross_one<INV, UPPER>(a.y, b.y, w, q, qi);
+    out[i] = r;
+  }
+}
+
+}  // namespace
+
+// out = one cross stage of (mine, theirs), all [rows, 2^log_n] contiguous
+// uint64 and 16-byte aligned; out may not overlap either input.  row_limb
+// [rows] int32 selects q, qinv and w, each [L] (w in Montgomery form).
+// upper: this rank holds the upper half of the stage's butterflies.
+// Returns a cudaError_t; cudaErrorInvalidValue for a shape it does not take.
+extern "C" int optconv_ntt_cross(const void* mine, const void* theirs,
+                                 void* out, const void* row_limb,
+                                 const void* q, const void* qinv,
+                                 const void* w, long long rows, int log_n,
+                                 int upper, int inverse, void* stream_) {
+  if (log_n < 1 || log_n > kMaxLogN || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long pairs = rows << (log_n - 1);
+  const long long blocks = (pairs + kCrossThreads - 1) / kCrossThreads;
+  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  auto stream = (cudaStream_t)stream_;
+  auto* a = (const ulonglong2*)mine;
+  auto* b = (const ulonglong2*)theirs;
+  auto* o = (ulonglong2*)out;
+  auto* rl = (const int*)row_limb;
+  auto* qq = (const uint64_t*)q;
+  auto* qi = (const uint64_t*)qinv;
+  auto* ww = (const uint64_t*)w;
+  const dim3 grid((unsigned)blocks), block(kCrossThreads);
+  const int lp = log_n - 1;
+  if (!inverse && !upper)
+    ntt_cross<false, false><<<grid, block, 0, stream>>>(a, b, o, rl, qq, qi,
+                                                        ww, pairs, lp);
+  else if (!inverse)
+    ntt_cross<false, true><<<grid, block, 0, stream>>>(a, b, o, rl, qq, qi,
+                                                       ww, pairs, lp);
+  else if (!upper)
+    ntt_cross<true, false><<<grid, block, 0, stream>>>(a, b, o, rl, qq, qi,
+                                                       ww, pairs, lp);
+  else
+    ntt_cross<true, true><<<grid, block, 0, stream>>>(a, b, o, rl, qq, qi, ww,
+                                                      pairs, lp);
+  return (int)cudaGetLastError();
+}

@@ -27,8 +27,15 @@ on ``parallel/limbs.LimbShardedContext``, the evaluator itself on one
 rank's limbs with a fixed owner per limb; ``dryrun_fused_layer`` drives
 it, as the JAX module's does, and holds it to the single device.
 
-The JAX module's third axis, sp (the coefficients, NTT stages across
-shards), is not here: it needs a distributed NTT.
+  sp   the coefficient axis (innermost, on request: ``build_mesh(shape,
+       sp=k)``): rank s holds the columns [s·N/sp, (s+1)·N/sp) of every
+       row.  Products, basis extensions and the rescale's arithmetic are
+       column-local; ``parallel/coeffs.py`` writes out what crosses
+       columns: log2(sp) stage-wise partner exchanges a forward or
+       inverse NTT, and one shard transfer (or none) a Galois gather.
+       The step runs on an sp mesh with a ``CoeffShardedContext``; the tp
+       collectives then run within each tp group at a fixed sp
+       coordinate, on N/sp columns.
 
 Collectives run on NCCL where every rank has a card of its own, and on
 gloo on the CPU and where several ranks share one card (NCCL refuses two
@@ -68,6 +75,7 @@ from ..device import resolve_device
 
 AXES = ("dp", "tp")
 HYBRID_AXES = ("dcn", "dp", "tp")
+SP = "sp"
 # every process group's collectives give up after this: a hung collective
 # fails its run instead of holding it
 TIMEOUT = timedelta(seconds=60)
@@ -107,16 +115,23 @@ def hybrid_mesh_shape(n_devices: int, n_hosts: int | None = None
     return hosts, per // tp, tp
 
 
-class Mesh:
-    """A (dp, tp) or (dcn, dp, tp) device mesh: the ranks laid out in
-    `shape` and, in a ``torch.distributed`` world, the ``DeviceMesh`` that
-    holds one process group an axis.  Without a world it is a layout
-    only, which a step can run on at one rank, with no collective."""
+def _axis_names(shape, sp: int) -> tuple[str, ...]:
+    return (AXES if len(shape) == 2 else HYBRID_AXES) + ((SP,) if sp > 1
+                                                         else ())
 
-    def __init__(self, shape, device_mesh=None):
+
+class Mesh:
+    """A (dp, tp) or (dcn, dp, tp) device mesh, with an innermost sp axis
+    where `sp` > 1: the ranks laid out in `shape` (+ (sp,)) and, in a
+    ``torch.distributed`` world, the ``DeviceMesh`` that holds one process
+    group an axis.  Without a world it is a layout only, which a step can
+    run on at one rank, with no collective."""
+
+    def __init__(self, shape, device_mesh=None, sp: int = 1):
         if len(shape) not in (2, 3):
             raise ValueError(f"mesh shape {shape}: (dp, tp) or (dcn, dp, tp)")
-        self.axis_names = AXES if len(shape) == 2 else HYBRID_AXES
+        self.axis_names = _axis_names(shape, sp)
+        shape = tuple(shape) + ((sp,) if sp > 1 else ())
         self.device_mesh = device_mesh
         if device_mesh is None:
             self.devices = np.arange(math.prod(shape)).reshape(shape)
@@ -144,22 +159,25 @@ class Mesh:
         return self.device_mesh.get_group(axis)
 
 
-def build_mesh(shape) -> Mesh:
-    """A Mesh of the given (dp, tp) or (dcn, dp, tp) shape.  In a
+def build_mesh(shape, sp: int = 1) -> Mesh:
+    """A Mesh of the given (dp, tp) or (dcn, dp, tp) shape, with an
+    innermost sp axis of `sp` ranks where sp > 1.  In a
     ``torch.distributed`` world it must cover the world (ranks row-major,
-    tp innermost) and is made by ``init_device_mesh``, a collective every
-    rank calls; without a world, a layout only."""
+    the last axis innermost) and is made by ``init_device_mesh``, a
+    collective every rank calls; without a world, a layout only."""
     shape = tuple(int(s) for s in shape)
+    if sp < 1:
+        raise ValueError(f"sp {sp}")
     if not dist.is_initialized():
-        return Mesh(shape)
-    if math.prod(shape) != dist.get_world_size():
-        raise ValueError(f"a mesh of {shape} in a world of "
+        return Mesh(shape, sp=sp)
+    full = shape + ((sp,) if sp > 1 else ())
+    if math.prod(full) != dist.get_world_size():
+        raise ValueError(f"a mesh of {full} in a world of "
                          f"{dist.get_world_size()} ranks")
     from torch.distributed.device_mesh import init_device_mesh
-    names = AXES if len(shape) == 2 else HYBRID_AXES
     dm = init_device_mesh("cuda" if torch.cuda.is_available() else "cpu",
-                          shape, mesh_dim_names=names)
-    return Mesh(shape, dm)
+                          full, mesh_dim_names=_axis_names(shape, sp))
+    return Mesh(shape, dm, sp)
 
 
 def _world_size() -> int:
@@ -227,7 +245,8 @@ def init_distributed(init_method: str | None = None,
     is joined through `init_method` ("file://…" or "tcp://host:port";
     "env://" by default, with torchrun's ``WORLD_SIZE``/``RANK``), on
     `backend` (``default_backend``), with every collective bounded by
-    ``TIMEOUT``."""
+    ``TIMEOUT``; on a machine with cards the rank's card is set first
+    (``_local_card``)."""
     if dist.is_initialized():
         return dist.get_world_size()
     env = "WORLD_SIZE" in os.environ and "RANK" in os.environ
@@ -237,7 +256,9 @@ def init_distributed(init_method: str | None = None,
     world_size = int(os.environ["WORLD_SIZE"]) if world_size is None else world_size
     rank = int(os.environ["RANK"]) if rank is None else rank
     backend = backend or default_backend(world_size)
-    if backend == "nccl":
+    if torch.cuda.is_available():
+        # before init_device_mesh, which takes torchrun's LOCAL_RANK as the
+        # card where none is set: past the last card when ranks share one
         torch.cuda.set_device(_local_card(rank))
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank, timeout=TIMEOUT)
@@ -318,10 +339,12 @@ class Layout:
     polynomial, `batch` None) lie on a mesh: the limb axis in the
     contiguous ranges `limbs`, one a tp index; the batch in
     ``limb_split(batch, parts)``, the parts the flattened coordinates of
-    `batch_axes` (outer first); replicated over every other axis."""
+    `batch_axes` (outer first); the coefficient axis in `sp` equal
+    column ranges, one an sp index; replicated over every other axis."""
     limbs: tuple[range, ...]
     batch: int | None = None
     batch_axes: tuple[str, ...] = ()
+    sp: int = 1
 
     def _batch_part(self, mesh: Mesh) -> int:
         part = 0
@@ -342,22 +365,33 @@ class Layout:
         b, limbs = self.local(mesh)
         if b is not None:
             a = a[b.start:b.stop]
-        return a[..., limbs.start:limbs.stop, :]
+        a = a[..., limbs.start:limbs.stop, :]
+        if self.sp > 1:
+            w = a.shape[-1] // self.sp
+            s = mesh.coord(SP)
+            a = a[..., s * w:(s + 1) * w]
+        return a
+
+
+def batch_parts(mesh: Mesh) -> int:
+    """The number of batch shards of ``batch_sharding``: dcn × dp."""
+    return mesh.size("dcn") * mesh.size("dp")
 
 
 def batch_sharding(mesh: Mesh, n_limbs: int, batch: int) -> Layout:
     """[B, l+1, N] ciphertext batches: batch over (dcn, dp) on a hybrid
     mesh (node-local images: no cross-node traffic on the hot path), over
-    dp otherwise; limbs over tp."""
+    dp otherwise; limbs over tp, coefficients over sp."""
     axes = ("dcn", "dp") if "dcn" in mesh.axis_names else ("dp",)
-    return Layout(limb_split(n_limbs, mesh.size("tp")), batch, axes)
+    return Layout(limb_split(n_limbs, mesh.size("tp")), batch, axes,
+                  mesh.size(SP))
 
 
 def ct_sharding(mesh: Mesh, n_limbs: int, batch: int | None = None) -> Layout:
     """[B, l+1, N] batches (or one [l+1, N] polynomial, batch None): batch
-    over dp, limbs over tp, replicated over dcn."""
+    over dp, limbs over tp, coefficients over sp, replicated over dcn."""
     return Layout(limb_split(n_limbs, mesh.size("tp")), batch,
-                  ("dp",) if batch is not None else ())
+                  ("dp",) if batch is not None else (), mesh.size(SP))
 
 
 def key_sharding(mesh: Mesh, params: CkksParams, level: int) -> tuple[int, ...]:
@@ -376,8 +410,9 @@ def shard_ct(ct: Ciphertext, mesh: Mesh) -> Ciphertext:
 
     Where the limb count does not divide tp, the limbs split unevenly:
     a rank holds ⌈L/tp⌉, ⌊L/tp⌋ or, below tp limbs, none.  (The JAX
-    module shards the coefficient axis there instead; that axis, sp, is
-    not ported.)"""
+    module shards the coefficient axis there instead; here the
+    coefficients split over an sp axis of their own, where the mesh has
+    one.)"""
     batch = ct.c0.shape[0] if ct.c0.dim() == 3 else None
     lay = ct_sharding(mesh, ct.c0.shape[-2], batch)
     return Ciphertext(lay.take(ct.c0, mesh), lay.take(ct.c1, mesh),
@@ -410,9 +445,17 @@ def _all_gather(x: torch.Tensor, group, sizes, dim: int,
 
 def gather_ct(ct: Ciphertext, mesh: Mesh, layout: Layout) -> Ciphertext:
     """The whole ciphertext (or batch) on every rank, from each rank's
-    shard `ct` placed by `layout`: all-gathers over tp, then over the
-    batch axes, innermost first."""
-    c = torch.stack([ct.c0, ct.c1])
+    shard `ct` placed by `layout`: all-gathers over sp (columns), tp,
+    then the batch axes, innermost first."""
+    c = gather_stacked(torch.stack([ct.c0, ct.c1]), mesh, layout)
+    return Ciphertext(c[0], c[1], level=ct.level, scale=ct.scale)
+
+
+def gather_stacked(c: torch.Tensor, mesh: Mesh, layout: Layout) -> torch.Tensor:
+    """``gather_ct`` of a [k, (B,) rows, cols] stack of shards placed by
+    `layout` → [k, (B,) L, N] on every rank."""
+    if layout.sp > 1:
+        c = _all_gather(c, mesh.group(SP), [c.shape[-1]] * layout.sp, -1)
     c = _all_gather(c, mesh.group("tp"), [len(r) for r in layout.limbs], -2)
     if layout.batch is not None and layout.batch_axes:
         axes = layout.batch_axes
@@ -424,7 +467,7 @@ def gather_ct(ct: Ciphertext, mesh: Mesh, layout: Layout) -> Ciphertext:
         for k in reversed(range(len(axes))):
             block = sizes[coords[:k]].reshape(dims[k], -1).sum(1)
             c = _all_gather(c, mesh.group(axes[k]), block.tolist(), 1)
-    return Ciphertext(c[0], c[1], level=ct.level, scale=ct.scale)
+    return c
 
 
 def share_galois_key(ctx: CkksContext, g: int, level: int) -> SwitchingKey:
@@ -470,13 +513,19 @@ def share_galois_key(ctx: CkksContext, g: int, level: int) -> SwitchingKey:
 
 class ShardedLayerStep:
     """One rank's part of the fused step ct×pt → φ_g → hybrid key switch
-    → add → rescale on a batch, the limb axis split over the mesh's tp.
+    → add → rescale on a batch, the limb axis split over the mesh's tp
+    and, on a mesh with an sp axis, the coefficients over sp.
 
-    Inputs, this rank's shards: c0, c1 [..., q, N] (its Q limbs of
-    ``limb_split(level+1, tp)``), pt [q, N] (NTT + Montgomery; ``shard_pt``
-    takes them), perm [N] (``galois_perm``), d0, d1 [beta, q+p, N] (the
-    key rows of ``key_sharding``; ``shard_key`` takes them).  Output:
-    (o0, o1), its Q limbs but the top one, ``out_limbs``.
+    Inputs, this rank's shards: c0, c1 [..., q, N/sp] (its Q limbs of
+    ``limb_split(level+1, tp)``, its columns), pt [q, N/sp] (NTT +
+    Montgomery; ``shard_pt`` takes them), perm (``ctx.galois_perm(g)``),
+    d0, d1 [beta, q+p, N/sp] (the key rows of ``key_sharding``, its
+    columns; ``shard_key`` takes them).  Output: (o0, o1), its Q limbs
+    but the top one, ``out_limbs``, its columns.
+
+    On an sp mesh `ctx` is a ``parallel/coeffs.CoeffShardedContext`` on
+    the same mesh: its NTTs and its Galois gather are the distributed
+    ones, and the context's own arithmetic runs on the columns unchanged.
 
     The collectives, in order, on the tp group: the all-gather of the
     coefficient-form c1 before the digit extension, of the coefficient-
@@ -484,8 +533,9 @@ class ShardedLayerStep:
     both halves' coefficient-form top limb by its owner before the
     rescale.  The rest is the context's own arithmetic on this rank's
     limbs (``_ks_core``, ``_mod_down_limbs``, ``_rescale_limbs``).
-    ``bytes`` holds (payload, moved) bytes of each collective in the last
-    call, ``moved`` counting the padding of uneven shards."""
+    ``bytes`` holds (payload, moved) bytes of each tp collective in the
+    last call, ``moved`` counting the padding of uneven shards (the sp
+    transfers are counted by ``ctx.ntt.comm``)."""
 
     def __init__(self, ctx: CkksContext, level: int, mesh: Mesh):
         if level < 1:
@@ -494,6 +544,13 @@ class ShardedLayerStep:
             raise ValueError("a mesh of several ranks needs a torch.distributed "
                              "world (init_distributed)")
         p = ctx.params
+        self.sp = mesh.size(SP)
+        if self.sp > 1:
+            from .coeffs import CoeffShardedContext, shard_cols
+            if not (isinstance(ctx, CoeffShardedContext) and ctx.mesh is mesh):
+                raise ValueError("a step on an sp mesh needs a "
+                                 "CoeffShardedContext on that mesh")
+            self.cols = shard_cols(p.n, self.sp, mesh.coord(SP))
         self.ctx, self.level, self.mesh = ctx, level, mesh
         tp, r = mesh.size("tp"), mesh.coord("tp")
         self.group = mesh.group("tp")
@@ -513,25 +570,30 @@ class ShardedLayerStep:
                        if self.targets else None)
         self.bytes: dict = {}
 
+    def _cols(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of whole rows (a view)."""
+        return t if self.sp == 1 else t[..., self.cols]
+
     def shard_pt(self, pt_poly: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of a whole [l+1, N] plaintext."""
+        """This rank's rows and columns of a whole [l+1, N] plaintext."""
         rg = self.q_limbs[self.mesh.coord("tp")]
-        return pt_poly[..., rg.start:rg.stop, :]
+        return self._cols(pt_poly[..., rg.start:rg.stop, :])
 
     def shard_key(self, swk: SwitchingKey) -> tuple[torch.Tensor, torch.Tensor]:
-        """(d0, d1) rows of this rank's targets; d1 stored, memoised or
-        regenerated (``swk_d1``)."""
+        """(d0, d1) rows of this rank's targets, its columns; d1 stored,
+        memoised or regenerated whole (``swk_d1``)."""
         if swk.level != self.level:
             raise ValueError(f"key of level {swk.level} for a step at "
                              f"level {self.level}")
         sel = torch.tensor(self.key_rows, dtype=torch.int64,
                            device=swk.d0.device)
-        return (swk.d0.index_select(1, sel),
-                self.ctx.swk_d1(swk).index_select(1, sel))
+        return (self._cols(swk.d0).index_select(1, sel),
+                self._cols(self.ctx.swk_d1(swk)).index_select(1, sel))
 
     def out_layout(self, layout: Layout) -> Layout:
         """The layout of the output of inputs placed by `layout`."""
-        return Layout(self.out_limbs, layout.batch, layout.batch_axes)
+        return Layout(self.out_limbs, layout.batch, layout.batch_axes,
+                      layout.sp)
 
     def __call__(self, c0, c1, pt, perm, d0, d1):
         nq = len(self.own_q)
@@ -544,38 +606,17 @@ class ShardedLayerStep:
                              f"for {len(self.targets)} targets")
         ctx, lvl = self.ctx, self.level
         q, qinv = ctx.ntt.tabs(self.own_q)[:2]
-        self.bytes = {}
-        # ct × pt and φ_g: limb-local
-        c0p = nttmod.apply_galois_ntt(mm.mont_mul(c0, pt, q, qinv), perm)
-        c1p = nttmod.apply_galois_ntt(mm.mont_mul(c1, pt, q, qinv), perm)
-        # ModUp: every rank extends the whole c1 to its own targets, and
-        # takes the inner product with its own key rows
-        c1c = _all_gather(ctx.ntt.intt(c1p, self.own_q), self.group,
-                          [len(r) for r in self.q_limbs], -2, self.bytes,
-                          "c1 all_gather")
-        if self.digits is None:
-            acc0 = acc1 = c1c.new_empty(c1c.shape[:-2] + (0, c1c.shape[-1]))
-        else:
-            acc0, acc1 = ctx._ks_core(self.digits.extend_digits(c1c), d0, d1,
-                                      lvl, lazy=True, idx=self.targets)
-        # mod-down: the P rows of both halves, gathered, extended to own Q
-        acc_p = ctx.ntt.intt(torch.stack([acc0[..., nq:, :], acc1[..., nq:, :]]),
-                             self.own_p)
-        acc_p = _all_gather(acc_p, self.group, [len(r) for r in self.p_limbs],
-                            -2, self.bytes, "P all_gather")
-        if nq:
-            r0 = mm.add_mod(c0p, ctx._mod_down_limbs(
-                acc0[..., :nq, :], acc_p[0], lvl, self.own_q), q)
-            r1 = ctx._mod_down_limbs(acc1[..., :nq, :], acc_p[1], lvl,
-                                     self.own_q)
-        else:
-            r0 = r1 = c0p
+        # ct × pt and φ_g: limb-local (a column shard moves whole)
+        c0p = ctx._permute(mm.mont_mul(c0, pt, q, qinv), perm)
+        c1p = ctx._permute(mm.mont_mul(c1, pt, q, qinv), perm)
+        ks0, ks1 = self.keyswitch(c1p, d0, d1)
+        r0, r1 = (mm.add_mod(c0p, ks0, q), ks1) if nq else (c0p, c0p)
         # rescale: the owner's top limb, broadcast in coefficient form
         if self.is_owner:
             top = ctx.ntt.intt(torch.stack([r0[..., -1:, :], r1[..., -1:, :]]),
                                (lvl,))
         else:
-            top = c0p.new_empty((2,) + tuple(c1c.shape[:-2]) + (1, c0.shape[-1]))
+            top = c0p.new_empty((2,) + tuple(c0p.shape[:-2]) + (1, c0.shape[-1]))
         if self.group is not None:
             dist.broadcast(top, src=dist.get_global_rank(self.group, self.owner),
                            group=self.group)
@@ -585,6 +626,35 @@ class ShardedLayerStep:
         ns = len(self.sub)
         return (ctx._rescale_limbs(r0[..., :ns, :], top[0], lvl, self.sub),
                 ctx._rescale_limbs(r1[..., :ns, :], top[1], lvl, self.sub))
+
+    def keyswitch(self, c1p: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor):
+        """The hybrid key switch of this rank's shard c1p [..., q, N/sp]
+        (NTT domain) with its key rows → (ks0, ks1) on its Q limbs, divided
+        by P; a rank without a Q limb gets its (empty) c1p twice.  It
+        still takes part in every collective of its tp group.
+
+        ModUp: every rank extends the whole c1 to its own targets and
+        takes the inner product with its own key rows; mod-down: the P
+        rows of both halves, gathered, extended to its own Q limbs."""
+        ctx, lvl = self.ctx, self.level
+        nq = len(self.own_q)
+        self.bytes = {}
+        c1c = _all_gather(ctx.ntt.intt(c1p, self.own_q), self.group,
+                          [len(r) for r in self.q_limbs], -2, self.bytes,
+                          "c1 all_gather")
+        if self.digits is None:
+            acc0 = acc1 = c1c.new_empty(c1c.shape[:-2] + (0, c1c.shape[-1]))
+        else:
+            acc0, acc1 = ctx._ks_core(self.digits.extend_digits(c1c), d0, d1,
+                                      lvl, lazy=True, idx=self.targets)
+        acc_p = ctx.ntt.intt(torch.stack([acc0[..., nq:, :], acc1[..., nq:, :]]),
+                             self.own_p)
+        acc_p = _all_gather(acc_p, self.group, [len(r) for r in self.p_limbs],
+                            -2, self.bytes, "P all_gather")
+        if not nq:
+            return c1p, c1p
+        return (ctx._mod_down_limbs(acc0[..., :nq, :], acc_p[0], lvl, self.own_q),
+                ctx._mod_down_limbs(acc1[..., :nq, :], acc_p[1], lvl, self.own_q))
 
 
 def build_sharded_layer_step(ctx: CkksContext, level: int,
@@ -596,14 +666,21 @@ def build_sharded_layer_step(ctx: CkksContext, level: int,
 
 
 def dryrun(n_devices: int, log_n: int = 8, levels: int = 7,
-           batch: int | None = None, device="cuda") -> dict:
+           batch: int | None = None, device="cuda", sp: int = 1) -> dict:
     """Run one sharded layer step on an n-rank mesh and check it: output
     shape [b, level, N] and, residue for residue, the single-device
     ``rescale(rotate(mul_plain(ct, pt), 1))``.  n ≥ 8 takes the hybrid
     (dcn, dp, tp) mesh, fewer (dp, tp); b is the batch parts' count by
     default.  Runs in the current world, whose size must be n (one
     process without a world for n = 1).  → the bytes of each collective
-    (``ShardedLayerStep.bytes``)."""
+    (``ShardedLayerStep.bytes``).  With sp > 1, the coefficients split
+    over an innermost sp axis of the world's n ranks and every sp check
+    runs (``coeffs.dryrun_coeffs``): → the bytes of each collective and
+    each kind of sp transfer of the step."""
+    if sp > 1:
+        from .coeffs import dryrun_coeffs
+        return dryrun_coeffs(n_devices, sp, log_n, levels, batch,
+                             device)["bytes"]
     if n_devices != _world_size():
         raise ValueError(f"dryrun({n_devices}) in a world of {_world_size()} "
                          "ranks: start it under torchrun or run_ranks")
@@ -614,7 +691,7 @@ def dryrun(n_devices: int, log_n: int = 8, levels: int = 7,
                         logp=(45, 45, 45, 45), log_scale=25, h=32)
     ctx = CkksContext(params, dev, seed=0)
     level = params.max_level
-    b = math.prod(mesh.devices.shape[:-1]) if batch is None else batch
+    b = batch_parts(mesh) if batch is None else batch
 
     rng = np.random.default_rng(0)
     v = rng.uniform(-1, 1, params.n)
@@ -788,17 +865,25 @@ def main(argv=None) -> int:
     on a machine with k cards (or plain ``python -m`` for one): the
     dryrun on all ranks, its bytes a collective printed by rank 0.  With
     ``--fused``, ``dryrun_fused_layer`` instead (its default log_n 9):
-    each leg's digest, the collectives by kind and the limbs by stage."""
+    each leg's digest, the collectives by kind and the limbs by stage.
+    With ``--sp k``, the coefficients split over an innermost sp axis of k
+    ranks and every sp check runs (``coeffs.dryrun_coeffs``): each
+    check's digest and the bytes of each collective and sp transfer."""
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--log-n", type=int, default=None)
     ap.add_argument("--levels", type=int, default=7)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--fused", action="store_true")
+    ap.add_argument("--sp", type=int, default=1)
     args = ap.parse_args(argv)
     world = init_distributed()
     try:
         if args.fused:
             res = dryrun_fused_layer(world, args.log_n or 9, args.device)
+        elif args.sp > 1:
+            from .coeffs import dryrun_coeffs
+            res = dryrun_coeffs(world, args.sp, args.log_n or 8, args.levels,
+                                device=args.device)
         else:
             res = {"bytes": dryrun(world, args.log_n or 8, args.levels,
                                    device=args.device)}

@@ -10,7 +10,8 @@ Montgomery product (single and chained): the SASS of a probe kernel that
 loads (u, v, w), does the arithmetic with ``csrc/modarith.cuh`` and
 stores, less the SASS of the same kernel without the arithmetic; and
 the same for one residue of a regenerated key half (``d1``: four
-Threefry-2x32 words and two Montgomery products, ``csrc/threefry.cuh``).
+Threefry-2x32 words and two Montgomery products, ``csrc/threefry.cuh``)
+and for one element of an NTT cross stage (``xmul``, ``xadd``).
 ``chip_smoke.py`` turns that count into the kernels' arithmetic bound.
 For K1 it also prints the whole kernel's count per element, index
 arithmetic and loads included (``mont_kernel_instructions``).
@@ -68,6 +69,20 @@ extern "C" __global__ void probe_mul2(uint64_t* x, const uint64_t* w,
   const int i = threadIdx.x;
   const uint64_t u = x[i], v = x[i + 1024], ww = w[i];
   x[i] = u; x[i + 1024] = mont_mul(mont_mul_lazy(v, ww, q, qi), u, q, qi);
+  x[i + 2048] = ww + q + qi;
+}
+extern "C" __global__ void probe_xmul(uint64_t* x, const uint64_t* w,
+                                      uint64_t q, uint64_t qi) {
+  const int i = threadIdx.x;
+  const uint64_t u = x[i], v = x[i + 1024], ww = w[i];
+  x[i] = u; x[i + 1024] = cond_sub(u + mont_mul(v, ww, q, qi), q);
+  x[i + 2048] = ww + q + qi;
+}
+extern "C" __global__ void probe_xadd(uint64_t* x, const uint64_t* w,
+                                      uint64_t q, uint64_t qi) {
+  const int i = threadIdx.x;
+  const uint64_t u = x[i], v = x[i + 1024], ww = w[i];
+  x[i] = u; x[i + 1024] = cond_sub(u + v, q);
   x[i + 2048] = ww + q + qi;
 }
 extern "C" __global__ void probe_d1(uint64_t* x, const uint64_t* w,
@@ -135,8 +150,10 @@ def int_instructions(ops: collections.Counter) -> int:
 def butterfly_instructions() -> dict:
     """32-bit integer instructions of one forward butterfly, one inverse
     butterfly, one Montgomery product, one chained product (the first
-    lazily reduced, as K1 does it) and one residue of a regenerated key
-    half (``d1``), from the probe kernels' SASS.
+    lazily reduced, as K1 does it), one residue of a regenerated key
+    half (``d1``) and one element of an NTT cross stage (``xmul``: a
+    product and a reduced sum or difference; ``xadd``: the inverse
+    stage's lower half, a reduced sum), from the probe kernels' SASS.
 
     ``issue_slots`` is what bounds their time: the IMAD family issues on
     the FMA pipe and every other integer opcode on the integer ALU pipe,
@@ -155,7 +172,7 @@ def butterfly_instructions() -> dict:
         ops = sass_opcodes(cubin)
     base = int_instructions(ops["probe_copy"])
     out = {}
-    for name in ("fwd", "inv", "mul", "mul2", "d1"):
+    for name in ("fwd", "inv", "mul", "mul2", "d1", "xmul", "xadd"):
         mix = ops[f"probe_{name}"] - ops["probe_copy"]
         int32 = int_instructions(ops[f"probe_{name}"]) - base
         fma = sum(n for op, n in mix.items() if op.startswith("IMAD"))

@@ -299,6 +299,69 @@ def test_ntt_kernel_strided_input(dev, log_n, view):
     assert torch.equal(acc, keep)
 
 
+@pytest.fixture(scope="module")
+def ntt16(dev):
+    p = boot_params(16)
+    return p, NttContext(p.moduli, p.log_n, dev)
+
+
+def _shard_rows(p, lead):
+    """(limbs, batch) of the cross-stage shapes: the 28 limbs of level 27,
+    or its six key-switch digits of 33 rows."""
+    return (p.q_idx(27), 1) if lead == "q27" else (p.qp_idx(27), 6)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("upper", [False, True], ids=["lower", "upper"])
+@pytest.mark.parametrize("sp,lead", [(2, "q27"), (4, "digits27")])
+def test_ntt_cross_kernel_equals_plain(dev, ntt16, sp, lead, upper, inverse):
+    """The cross stage at [28, N/2] and [6, 33, N/4] equals its plain
+    version, one launch, for both halves of both directions."""
+    from optimal_conv_tpu_torch.core.ntt import ntt_cross_plain
+    from optimal_conv_tpu_torch.parallel.coeffs import cross_stages
+    p, ntt = ntt16
+    idx, batch = _shard_rows(p, lead)
+    rng = np.random.default_rng(sp + 2 * upper + 4 * inverse)
+    shape = (batch, len(idx), p.n // sp)
+    mine, theirs = (_residues([p.moduli[i] for i in idx], shape, rng, dev)
+                    for _ in range(2))
+    col = cross_stages(sp, sp - 1, inverse)[-1][2]
+    w = (ntt.ipsi_br if inverse else ntt.psi_br)[:, col].contiguous()
+    ntt_kernel.STATS_CROSS.reset()
+    got = ntt_kernel.ntt_cross_cuda(mine, theirs, ntt._row_limb(idx, batch),
+                                    ntt.q_vec, ntt.qinv_vec, w, upper, inverse)
+    assert ntt_kernel.STATS_CROSS.launches == 1
+    q, qinv = ntt.tabs(idx)[:2]
+    want = ntt_cross_plain(mine, theirs, w[list(idx)][:, None], q, qinv, upper,
+                           inverse)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("sp", [2, 4])
+def test_ntt_kernel_on_shard_tables(dev, ntt16, sp, inverse):
+    """K2/K3 at log_n - log2(sp) on a shard's twiddle table (the inverse
+    with the whole ring's n^-1) equal the plain local sub-transform."""
+    from optimal_conv_tpu_torch.parallel.coeffs import shard_twiddles
+    p, ntt = ntt16
+    idx = p.qp_idx(27)
+    log_cols = p.log_n - (sp.bit_length() - 1)
+    rng = np.random.default_rng(sp)
+    x = _residues([p.moduli[i] for i in idx], (6, len(idx), p.n // sp), rng,
+                  dev)
+    s = sp - 1
+    tab = shard_twiddles(ntt.ipsi_br if inverse else ntt.psi_br, sp, s)
+    got = ntt_kernel.ntt_cuda(x, ntt._row_limb(idx, 6), ntt.q_vec, ntt.qinv_vec,
+                              tab, ntt.n_inv, log_cols, inverse)
+    q, qinv = ntt.tabs(idx)[:2]
+    sel = torch.tensor(idx, device=dev)
+    rows = tab.index_select(0, sel)
+    want = (_ntt_inv(x, rows, ntt.n_inv.index_select(0, sel)[:, None], q, qinv,
+                     log_cols) if inverse
+            else _ntt_fwd(x, rows, q, qinv, log_cols))
+    assert torch.equal(got, want)
+
+
 def test_sharded_step_dryrun_on_card(dev):
     """The limb-sharded layer step at one rank on the card (no process
     group: its collectives are the identity) equals the single-device

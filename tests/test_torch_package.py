@@ -38,7 +38,8 @@ MODULES = ["optimal_conv_tpu_torch", "optimal_conv_tpu_torch.cli",
            "optimal_conv_tpu_torch.core.threefry",
            "optimal_conv_tpu_torch.core.d1_kernel",
            "optimal_conv_tpu_torch.parallel.sharding",
-           "optimal_conv_tpu_torch.parallel.limbs"]
+           "optimal_conv_tpu_torch.parallel.limbs",
+           "optimal_conv_tpu_torch.parallel.coeffs"]
 
 # The suite runs in several pytest workers at once; PyTorch's intra-op
 # threads on top of them oversubscribe the cores (a 4 s test took 490 s
