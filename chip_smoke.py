@@ -130,7 +130,17 @@ the port's main path at logN=16 on the Go fork's modulus chain:
     of 4, the JAX test's dp 2 x tp 2 x sp 2 in a world of 8; every result
     equal to the single device's residue for residue (by digest across
     processes); warm walls of the step by rank, rank 0's device ms, the
-    transfers and bytes by kind and the launches.
+    transfers and bytes by kind and the launches;
+  * the four-step matrix NTT on the main path (``mxu_path``, after
+    ``coeff_sharding_path``, each part on a fresh context): ``conv 3 0 1
+    --ntt mxu`` through the CLI's ``run_conv``, every NTT of the command
+    on the matrix route (no K2/K3 launch), held to the conv path's golden
+    bars; and ``keys_path``'s block-1 layer on a context of its seed with
+    ``ntt_backend="auto"`` (the JAX package's routing at logN 16: the
+    matrix route for calls over at most 12 limbs), held to the layer bars
+    and equal to ``keys_path``'s output residue for residue, with its warm
+    walls, device ms, launches by rows and the share of its transforms on
+    the matrix route beside the butterfly's.
 
 The whole-model paths run under the default key settings: every path
 makes its keys seed-compressed at logN 16, and each ``memory`` line
@@ -156,7 +166,11 @@ the bootstrap's shapes (the digits and inner products of levels 27, 23, 3
 and 2); d1_regen at the key halves of levels 27 ([6,33,N]) and 0
 ([1,6,N]), unpermuted and permuted, against its plain version (every
 residue equal), and a tp-4 rank's rows of the level-27 key drawn alone
-(``rows``) against its plain version and the whole draw's rows.  A path that makes keys must launch d1_regen (each
+(``rows``) against its plain version and the whole draw's rows; the
+matrix NTT (``check_mxu``) against its plain version and K2/K3 at logN 16
+(each byte width, [2,12,N], [6,33,N], a strided view), 10 and 12, timed
+beside K2/K3 as µs a row against its int8 bound (SMs × 8192 operations a
+clock at the maximum SM clock).  A path that makes keys must launch d1_regen (each
 key's uniform half is drawn by it); a warm run on made keys need not.
 After the
 paths one warm conv at 16²×256 is split into host-side kernel encoding
@@ -192,7 +206,8 @@ from optimal_conv_tpu_torch.ckks.context import GIB, CkksContext
 from optimal_conv_tpu_torch.ckks.params import boot_params
 from optimal_conv_tpu_torch.ckks.types import Ciphertext
 from optimal_conv_tpu_torch.core import (cuda_lib, d1_kernel, mont_kernel,
-                                         ntt_kernel, threefry)
+                                         mxu_kernel, mxu_ntt, ntt_kernel,
+                                         threefry)
 from optimal_conv_tpu_torch.core import modmath as mm
 from optimal_conv_tpu_torch.core.ntt import (NttContext, _ntt_fwd, _ntt_inv,
                                              galois_perm_ntt, ntt_cross_plain,
@@ -222,10 +237,14 @@ from optimal_conv_tpu_torch.utils.timing import cuda_ms, cuda_ms_cold
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "ref_conv_3_0_1.json")
 STATS = [mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV,
-         d1_kernel.STATS, ntt_kernel.STATS_CROSS]
+         d1_kernel.STATS, ntt_kernel.STATS_CROSS, mxu_kernel.STATS_FWD,
+         mxu_kernel.STATS_INV]
 MAIN = STATS[:4]               # K1, K2, K3, d1_regen: every path but sp's
 K123 = STATS[:3]
+SP = STATS[:5]                 # the sp axis's: MAIN and the cross stage
+MXU = STATS[5:]                # the matrix NTT's, forward and inverse
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+INT8_OPS_PER_SM_CLOCK = 8192   # dense int8 tensor-core rate (wgmma); data sheet
 INT32_LANES_PER_SM = 64        # per pipe (ALU, FMA); Hopper white paper
 # (32-bit integer instructions, issue slots at 64 lanes) of one forward /
 # inverse butterfly, one Montgomery product and one regenerated key
@@ -263,6 +282,7 @@ class Card:
         self.sm_hz = float(out.stdout.strip().splitlines()[0]) * 1e6
         self.sms = torch.cuda.get_device_properties(dev).multi_processor_count
         self.int32_per_s = INT32_LANES_PER_SM * self.sms * self.sm_hz
+        self.int8_per_s = INT8_OPS_PER_SM_CLOCK * self.sms * self.sm_hz
         try:
             counts = kernel_info.butterfly_instructions()
             self.int32 = {k: v["int32"] for k, v in counts.items()}
@@ -275,7 +295,8 @@ class Card:
         self.k1_whole = kernel_info.mont_kernel_instructions()
         print(f"bounds: {HBM_BYTES_PER_S / 1e12} TB/s; {self.sms} SMs x "
               f"{INT32_LANES_PER_SM} lanes a pipe x {self.sm_hz / 1e9:.3f} GHz "
-              f"= {self.int32_per_s / 1e12:.2f} T issue slots/s; instructions "
+              f"= {self.int32_per_s / 1e12:.2f} T issue slots/s; int8 tensor "
+              f"cores {self.int8_per_s / 1e15:.3f} P operations/s; instructions "
               f"{self.int32}, issue slots {self.slots} from {self.int32_from}")
 
     def bound(self, n_bytes: float, n_slots: float) -> dict:
@@ -293,6 +314,23 @@ class Card:
         n_bytes = 8 * (2 * rows * n + limbs * n)       # in, out, twiddles
         ops = rows * log_n * (n // 2) * self.slots["inv" if inverse else "fwd"]
         return self.bound(n_bytes, ops)
+
+    def mxu_bound(self, tabs, idx, batch: int) -> dict:
+        """The matrix NTT's bound for one transform of `batch` stacks of the
+        limbs `idx`: the larger of its int8 operations, Σ nb² · 2N(A + B)
+        over the rows, over the card's dense int8 rate, and its bytes: each
+        row read and written once, and each limb's nb planes of both
+        matrices and its twiddles read once."""
+        n, a, b = tabs.n, tabs.A, tabs.B
+        nbs = [tabs.nbytes[i] for i in idx]
+        ops = batch * sum(k * k for k in nbs) * 2 * n * (a + b)
+        n_bytes = (16 * n * batch * len(idx)
+                   + sum(k * (a * a + b * b) + 8 * n for k in nbs))
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        o_ms = ops / self.int8_per_s * 1e3
+        return dict(bound_ms=max(b_ms, o_ms), bytes_ms=b_ms, int8_ms=o_ms,
+                    bound_by="bytes" if b_ms >= o_ms else "operations",
+                    operation_type="int8")
 
 
 residues = mont_bench.residues
@@ -756,6 +794,146 @@ def check_cross(dev, p, rng, card, k23) -> dict:
     return dict(max_abs_err=err, shapes=rows, **head)
 
 
+MXU_WIDTH_LIMBS = (5, 4, 0, 2)      # the fork chain's 4-, 6-, 7-, 8-byte limbs
+
+
+def _mxu_equal(ctx, bfly, x, idx, what, err) -> None:
+    """The matrix kernel's forward and inverse of `x` (rows on the limbs
+    `idx`) through ``ctx`` (the matrix route) against the plain version on
+    the card and K2/K3 (``bfly``), and the round trip: one launch each and
+    no plain call from the wrappers."""
+    tabs = ctx.mxu_tables()
+    stats = (mxu_kernel.STATS_FWD, mxu_kernel.STATS_INV)
+    before = [(s.launches, s.plain_calls) for s in stats]
+    f = ctx.ntt(x, idx)
+    back = ctx.intt(f, idx)
+    check([(s.launches, s.plain_calls) for s in stats]
+          == [(b[0] + 1, b[1]) for b in before],
+          f"matrix NTT {what}: not one launch each way, or a plain call")
+    want_f = mxu_ntt.mxu_fwd_plain(x, idx, tabs)
+    want_b = mxu_ntt.mxu_inv_plain(f, idx, tabs)
+    check(torch.equal(f, want_f), f"matrix NTT {what} differs from plain")
+    check(torch.equal(back, want_b), f"matrix iNTT {what} differs from plain")
+    check(torch.equal(f, bfly.ntt(x, idx)), f"matrix NTT {what} differs from K2")
+    check(torch.equal(back, bfly.intt(f, idx)),
+          f"matrix iNTT {what} differs from K3")
+    check(torch.equal(back, x), f"matrix intt(ntt(a)) != a on {what}")
+    err[0] = max(err[0], max_err(f, want_f))
+    err[1] = max(err[1], max_err(back, want_b))
+
+
+def check_mxu(dev, p, rng, card) -> dict:
+    """The four-step matrix NTT's kernel (``csrc/mxu_ntt.cu``) on the card:
+    forward and inverse against its plain version (float64 matmuls of the
+    byte planes) and against K2/K3, and the round trip, at logN 16 on the
+    fork's chain: 32 one-row calls of each byte width (limbs 5 / 4 / 0 / 2:
+    4 / 6 / 7 / 8 bytes), the four widths in one call, [2, 12, N] at level
+    11 (the widest stack JAX's "auto" sends to the matrix route),
+    the key-switch digits [6, 33, N] of level 27 forced onto it, and the P
+    rows of two accumulators read in place through their strides; logN 10
+    and 12 (B = 4 and 16: padded tiles) on six mixed limbs, on contexts
+    built on "cuda".  Then each logN-16 shape timed warm beside
+    K2/K3 in the same call, as µs a row beside its bound, the plain
+    version at the headline [2, 12, N], and ``torch._int_mm`` on one
+    step's signed [nb·256, 256] × [256, nb·256] planes as a yardstick of
+    the product core alone (no PyTorch call computes the modular
+    transform).  → the kernels line's rows "mxu_fwd" and "mxu_inv"."""
+    n = p.n
+    bfly = NttContext(p.moduli, p.log_n, dev)
+    ctx = NttContext(p.moduli, p.log_n, dev, backend="mxu")
+    t0 = time.perf_counter()
+    tabs = ctx.mxu_tables()
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    mib = sum(t.numel() * t.element_size() for t in
+              (tabs.w1, tabs.w2, tabs.iv1, tabs.iv2, tabs.t_mont,
+               tabs.it_mont)) / 2**20
+    print(f"matrix NTT tables for {len(p.moduli)} limbs at logN {p.log_n}: "
+          f"built in {build_s:.2f} s, {mib:.1f} MiB; byte widths {tabs.nbytes}")
+    err = [0.0, 0.0]
+    mods = p.moduli
+    cases = [((limb,), (32,)) for limb in MXU_WIDTH_LIMBS]
+    cases += [(MXU_WIDTH_LIMBS, (2,)), (p.q_idx(11), (2,)), (p.qp_idx(27), (6,))]
+    for idx, lead in cases:
+        x = residues([mods[i] for i in idx], lead, n, rng, dev)
+        _mxu_equal(ctx, bfly, x, idx, f"{idx} {lead}", err)
+    qp = p.qp_idx(0)
+    nq = len(qp) - len(p.p_idx())
+    acc = residues([mods[i] for i in qp], (2,), n, rng, dev)
+    keep = acc.clone()
+    view = acc[..., nq:, :]
+    check(not view.is_contiguous(), "the P-row slice should be a view")
+    _mxu_equal(ctx, bfly, view, qp[nq:], "the strided P rows", err)
+    check(torch.equal(acc, keep), "the matrix transform wrote into its input")
+    idx11 = p.q_idx(11)
+    for small in (10, 12):
+        # built on "cuda", not an indexed device: the wrapper compares the
+        # devices of tensors
+        sctx = NttContext(mods[:6], small, "cuda", backend="mxu")
+        sb = NttContext(mods[:6], small, dev)
+        x = residues(mods[:6], (3,), 1 << small, rng, dev)
+        _mxu_equal(sctx, sb, x, tuple(range(6)), f"logN {small}", err)
+        del sctx, sb
+    print(f"matrix NTT equal to its plain version and to K2/K3 on every case; "
+          f"max_abs_err {err}")
+    shapes = [(f"[32,1,N] nb {tabs.nbytes[limb]} (limb {limb})", (limb,), (32,))
+              for limb in MXU_WIDTH_LIMBS]
+    shapes += [("[2,12,N] level 11", idx11, (2,)),
+               ("[6,33,N] level 27", p.qp_idx(27), (6,))]
+    rows_by = {"mxu_fwd": [], "mxu_inv": []}
+    plain_ms = {}
+    for shape, idx, lead in shapes:
+        x = residues([mods[i] for i in idx], lead, n, rng, dev)
+        rows = x.numel() // n
+        for k, inverse in enumerate((False, True)):
+            name = "mxu_inv" if inverse else "mxu_fwd"
+            fn = ctx.intt if inverse else ctx.ntt
+            kb = bfly.intt if inverse else bfly.ntt
+            ms = cuda_ms(lambda: fn(x, idx), dev, iters=10)
+            k23_ms = cuda_ms(lambda: kb(x, idx), dev, iters=10)
+            ms2 = cuda_ms(lambda: fn(x, idx), dev, iters=10)
+            bnd = card.mxu_bound(tabs, idx, rows // len(idx))
+            row = dict(shape=shape, ms=ms, ms_again=ms2, k23_ms=k23_ms,
+                       us_a_row=ms * 1e3 / rows,
+                       k23_us_a_row=k23_ms * 1e3 / rows,
+                       bound_us_a_row=bnd["bound_ms"] * 1e3 / rows, **bnd)
+            print(f"{name} {shape}: {ms:.4f} ms (again {ms2:.4f}) "
+                  f"= {row['us_a_row']:.3f} us a row; K{2 + k} {k23_ms:.4f} ms "
+                  f"= {row['k23_us_a_row']:.3f} us a row; bound "
+                  f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (bytes "
+                  f"{bnd['bytes_ms']:.4f}, int8 {bnd['int8_ms']:.4f}) = "
+                  f"{row['bound_us_a_row']:.3f} us a row")
+            if shape.startswith("[2,12,N]"):
+                plain = (mxu_ntt.mxu_inv_plain if inverse
+                         else mxu_ntt.mxu_fwd_plain)
+                plain_ms[name] = cuda_ms(lambda: plain(x, idx, tabs), dev,
+                                         iters=2, warmup=1)
+                print(f"{name} {shape}: plain {plain_ms[name]:.4f} ms")
+            rows_by[name].append(row)
+    # the product core alone: one step's signed planes through torch._int_mm
+    # (an int8 GEMM; the recombination and the reduction are not in it)
+    int_mm = []
+    for nb in (4, 6, 7, 8):
+        a8 = torch.randint(-128, 128, (nb * 256, 256), dtype=torch.int8,
+                           device=dev)
+        b8 = torch.randint(-128, 128, (256, nb * 256), dtype=torch.int8,
+                           device=dev)
+        ms = cuda_ms(lambda: torch._int_mm(a8, b8), dev, iters=50)
+        int_mm.append(dict(nb=nb, step_ms=ms, us_a_row=2 * ms * 1e3))
+        print(f"torch._int_mm [{nb * 256},256] x [256,{nb * 256}] int8: "
+              f"{ms:.4f} ms a step, {2 * ms * 1e3:.3f} us a row (two steps)")
+    out = {}
+    for k, name in enumerate(("mxu_fwd", "mxu_inv")):
+        head = next(r for r in rows_by[name] if r["shape"].startswith("[2,12,N]"))
+        # no PyTorch call computes the modular transform
+        out[name] = dict(max_abs_err=err[k], plain_ms=plain_ms[name],
+                         library_ms=None, int_mm_yardstick=int_mm,
+                         tables_build_s=build_s, shapes=rows_by[name], **head)
+    del ctx, bfly, tabs
+    torch.cuda.empty_cache()
+    return out
+
+
 def main_path(dev, card):
     """Phases 4-5: conv at the four geometries and the FC head."""
     p = boot_params(16)
@@ -863,7 +1041,8 @@ def where_time_goes(dev, card):
 def _profile_groups(fn, dev):
     """One call of fn() under ``torch.profiler``: → (wall ms, device
     kernel ms, {group: {launches, ms}}) with the device kernels grouped
-    into K1, K2, K3, d1_regen, the NTT cross stage and PyTorch's own,
+    into K1, K2, K3, d1_regen, the NTT cross stage, the matrix NTT's step
+    and PyTorch's own,
     and the copies and
     memsets of the runtime ("copies": gloo stages each collective through
     host memory with them).  Reads the profiler's raw events
@@ -895,6 +1074,7 @@ def _profile_groups(fn, dev):
                "ntt_pass<forward>" if "ntt_pass" in name else
                "mont_mul_kernel" if "mont_mul" in name else
                "d1_regen_kernel" if "d1_regen" in name else
+               "mxu_step" if "mxu_step" in name else
                "copies" if name.startswith(("Memcpy", "Memset")) else
                "torch kernels")
         g = groups.setdefault(key, [0, 0])
@@ -1626,7 +1806,31 @@ def print_profiled(label, probe, card, total_ms) -> None:
 KEYS_SEED = 12
 
 
-def keys_path(dev, card) -> dict:
+def _keys_layer(ctx):
+    """``keys_path``'s layer on `ctx`: the block-1 runner with its
+    bootstrapper built → (fam, runner, w)."""
+    fam = boot.BootstrapperFamily(ctx)
+    runner, w = block1_runner(ctx)
+    fam[runner.log_sparse[0]]
+    return fam, runner, w
+
+
+def _keys_input(ctx, fam, runner, w):
+    """The seeded input of ``keys_path``'s layer, encrypted → (layer(), the
+    pre-activations)."""
+    p = ctx.params
+    cfg, li = runner.cfg, 1
+    raw, in_wid = cfg.raw_in_wids[0], cfg.in_wids[0]
+    img = np.random.default_rng(13).uniform(-1, 1,
+                                            (raw, raw, w.convs[li].shape[2]))
+    ct = ctx.encrypt(ctx.encoder.encode_coeffs(
+        convops.prep_input(img.ravel(), raw, in_wid, p.n, runner.norm[0]),
+        p.scale, convops.ECD_LEVEL))
+    pre = convops.conv2d_same_np(img, w.convs[li]) * w.bn_a[li] + w.bn_b[li]
+    return (lambda: block1_layer(ctx, fam, runner, w, ct)), pre
+
+
+def keys_path(dev, card) -> tuple:
     """Phase 15, before the whole-model paths: switching-key storage.
     The runner's block-1 layer of ResNet-20 (``Conv_sparse``, log_sparse
     2) on one seeded input, on
@@ -1638,7 +1842,9 @@ def keys_path(dev, card) -> dict:
     use).  Each: the first call (keys made) with its launch counts, then
     warm walls, the launches of one warm call and one call under the
     profiler, the key bytes by tier and the peak.  The three outputs must
-    be equal residue for residue, and held to the layer bars."""
+    be equal residue for residue, and held to the layer bars.  → (counts,
+    (the defaults' output (c0, c1, level, scale), their summary)), which
+    ``mxu_path`` holds the matrix route's layer to."""
     p = boot_params(16)
     variants = [("compress_keys=False", dict(compress_keys=False)),
                 ("defaults", {}), ("starved", None)]
@@ -1651,21 +1857,9 @@ def keys_path(dev, card) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         ctx = CkksContext(p, dev, seed=KEYS_SEED, **kw)
         t0 = time.perf_counter()
-        fam = boot.BootstrapperFamily(ctx)
-        runner, w = block1_runner(ctx)
-        fam[runner.log_sparse[0]]
+        fam, runner, w = _keys_layer(ctx)
         build_s = time.perf_counter() - t0
-        cfg, li = runner.cfg, 1
-        raw, in_wid = cfg.raw_in_wids[0], cfg.in_wids[0]
-        img = np.random.default_rng(13).uniform(-1, 1,
-                                                (raw, raw, w.convs[li].shape[2]))
-        ct = ctx.encrypt(ctx.encoder.encode_coeffs(
-            convops.prep_input(img.ravel(), raw, in_wid, p.n, runner.norm[0]),
-            p.scale, convops.ECD_LEVEL))
-
-        def layer():
-            return block1_layer(ctx, fam, runner, w, ct)
-
+        layer, pre = _keys_input(ctx, fam, runner, w)
         for s in STATS:
             s.reset()
         torch.cuda.synchronize(dev)
@@ -1675,8 +1869,6 @@ def keys_path(dev, card) -> dict:
         first_ms = (time.perf_counter() - t0) * 1e3
         counts[f"keys path ({label})"] = _read_counts(
             f"keys path ({label}), first call", dev)
-        pre = (convops.conv2d_same_np(img, w.convs[li]) * w.bn_a[li]
-               + w.bn_b[li])
         _layer_check(ctx, runner, out, pre, f"keys path ({label}) layer")
         walls = [_wall_ms(layer, dev, iters=1) for _ in range(3)]
         warm = _counts_of(layer, dev)
@@ -1699,7 +1891,7 @@ def keys_path(dev, card) -> dict:
                             for k, v in kb.items()})
               + f" GiB; peak {summary[label]['peak_gib']:.3f} GiB")
         outs.append((out.c0.clone(), out.c1.clone(), out.level, out.scale))
-        del ctx, fam, runner, ct, out, cache
+        del ctx, layer, runner, out, cache, fam, w
     for (label, _), o in zip(variants[1:], outs[1:]):
         check(o[2:] == outs[0][2:] and torch.equal(o[0], outs[0][0])
               and torch.equal(o[1], outs[0][1]),
@@ -1711,7 +1903,7 @@ def keys_path(dev, card) -> dict:
           f"{dflt['device_ms'] / whole['device_ms']:.4f}; "
           + json.dumps(summary))
     torch.cuda.empty_cache()
-    return counts
+    return counts, (outs[1], dflt)
 
 
 SHARD_SEED = 21
@@ -2261,7 +2453,7 @@ def coeff_rank(rank: int, meshes, device: str) -> dict:
         del ctx, inputs
         torch.cuda.empty_cache()
     return dict(cases=out, counts=_path_counts(f"coeff sharding path rank "
-                                               f"{rank}", dev, need=STATS))
+                                               f"{rank}", dev, need=SP))
 
 
 def coeff_sharding_path(dev, card) -> dict:
@@ -2334,11 +2526,104 @@ def coeff_sharding_path(dev, card) -> dict:
     print(f"coeff sharding path launches (all ranks): "
           f"{json.dumps(total['launches'])}; the path took "
           f"{time.perf_counter() - t_path:.1f} s")
-    for s in STATS:
+    for s in SP:
         check(total["launches"][s.name] > 0, f"{s.name}: no launch on the "
               "coeff sharding path")
+    for s in STATS:
         s.reset()
     torch.cuda.empty_cache()
+    return total
+
+
+def mxu_path(dev, card, keys_ref) -> dict:
+    """Phase 19, after ``coeff_sharding_path``: the four-step matrix NTT on
+    the main path, each part on a fresh context.  (a) ``conv 3 0 1 --ntt
+    mxu`` through the CLI's ``run_conv``: every NTT of the command, the
+    33-limb ones of the keys included, on the matrix route, no K2/K3
+    launch; its output held to the conv path's bars (golden values 2e-5,
+    precision avg > 24, min > 21.9 bits).  (b) The block-1 ResNet-20
+    layer of ``keys_path`` on a context of its seed with
+    ``ntt_backend="auto"``, the JAX package's routing at logN 16 (the
+    matrix route for calls over at most 12 limbs, the butterfly above):
+    held to the layer bars, and every residue of its output equal to
+    ``keys_path``'s under the defaults (`keys_ref`); its warm walls,
+    device ms by kernel group, the launches of one warm call by rows and
+    the share of its transforms on the matrix route, beside the
+    butterfly's (``keys_path``)."""
+    t_path = time.perf_counter()
+    for s in STATS:
+        s.reset()
+    torch.cuda.empty_cache()
+    with open(GOLDEN) as f:
+        golden = json.load(f)["ours"]["values_test"]
+    (got, want), = cli.run_conv(3, 0, 1, dev, "mxu")
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          "conv 3 0 1 --ntt mxu: bad output")
+    err = float(np.abs(got - want).max())
+    gerr = float(np.abs(got[:10] - golden).max())
+    lg = -np.log2(np.abs(got - want) + 1e-300)
+    print(f"mxu path: conv 3 0 1 --ntt mxu: max err {err:.2e}, against the Go "
+          f"binary {gerr:.2e}, precision avg {lg.mean():.2f} min "
+          f"{lg.min():.2f} bits")
+    check(err < 2e-3 and gerr < 2e-5, f"conv 3 0 1 --ntt mxu: {err}, {gerr}")
+    check(lg.mean() > 24.0 and lg.min() > 21.9,
+          f"conv 3 0 1 --ntt mxu precision avg {lg.mean()} min {lg.min()}")
+    for s in (ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV):
+        check(s.launches == 0, f"{s.name}: launched under --ntt mxu")
+    total = dict(launches={}, by_rows={})
+    _add_counts(total, _read_counts("mxu path (conv 3 0 1 --ntt mxu)", dev,
+                                    need=[mont_kernel.STATS] + MXU))
+    torch.cuda.empty_cache()
+    ctx = CkksContext(boot_params(16), dev, seed=KEYS_SEED, ntt_backend="auto")
+    fam, runner, w = _keys_layer(ctx)
+    layer, pre = _keys_input(ctx, fam, runner, w)
+    for s in STATS:
+        s.reset()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = layer()
+    torch.cuda.synchronize(dev)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    _add_counts(total, _read_counts("mxu path (auto layer, first call)", dev,
+                                    need=MAIN + MXU))
+    _layer_check(ctx, runner, out, pre, "mxu path auto layer")
+    ref, butterfly = keys_ref
+    check((out.level, out.scale) == ref[2:] and torch.equal(out.c0, ref[0])
+          and torch.equal(out.c1, ref[1]), "mxu path: the auto layer's output "
+          "differs from the butterfly's")
+    walls = [_wall_ms(layer, dev, iters=1) for _ in range(3)]
+    layer()
+    torch.cuda.synchronize(dev)
+    for s in STATS:
+        s.reset()
+    layer()
+    torch.cuda.synchronize(dev)
+    warm = {s.name: s.launches for s in STATS}
+    by_rows = {s.name: {str(r): c for r, c in sorted(s.by_rows.items())}
+               for s in (ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV) + tuple(MXU)}
+    _add_counts(total, _read_counts("mxu path (auto layer, one warm call)", dev,
+                                    need=K123 + MXU))
+    wall, busy, groups = _profile_groups(layer, dev)
+    mxu_calls = warm["mxu_fwd"] + warm["mxu_inv"]
+    share = mxu_calls / (mxu_calls + warm["ntt_fwd"] + warm["ntt_inv"])
+    summary = dict(first_ms=first_ms, warm_ms=walls, device_ms=busy,
+                   groups=groups, warm_launches=warm, warm_by_rows=by_rows,
+                   matrix_share=share, butterfly_warm_ms=butterfly["warm_ms"],
+                   butterfly_device_ms=butterfly["device_ms"],
+                   butterfly_warm_launches=butterfly["warm_launches"])
+    print(f"mxu path auto layer, {card}: equal to the butterfly's residue for "
+          f"residue; first call {first_ms:.1f} ms; warm wall ms "
+          f"{[round(t, 1) for t in walls]} (butterfly "
+          f"{[round(t, 1) for t in butterfly['warm_ms']]}); under the profiler "
+          f"wall {wall:.2f} ms, device {busy:.3f} ms (butterfly "
+          f"{butterfly['device_ms']:.3f}); {100 * share:.1f}% of the transform "
+          f"calls on the matrix route; " + json.dumps(summary))
+    del ctx, layer, out, fam, runner, w
+    for s in STATS:
+        s.reset()
+    torch.cuda.empty_cache()
+    print(f"mxu path launches: {json.dumps(total['launches'])}; the path took "
+          f"{time.perf_counter() - t_path:.1f} s")
     return total
 
 
@@ -2882,6 +3167,7 @@ def main() -> int:
     k23 = check_ntt(dev, p, rng, rates)
     d1 = check_d1(dev, p, rates)
     cross = check_cross(dev, p, rng, rates, k23)
+    mxu = check_mxu(dev, p, rng, rates)
 
     for s in STATS:
         s.reset()
@@ -2924,10 +3210,13 @@ def main() -> int:
     # keys live in a dict that only grows
     del ctx, fam, held, a, b
     torch.cuda.empty_cache()
-    paths.update(keys_path(dev, card))
+    keys_counts, keys_ref = keys_path(dev, card)
+    paths.update(keys_counts)
     paths["sharding path"] = sharding_path(dev, card)
     paths["sharded layer path"] = sharded_layer_path(dev, card)
     paths["coeff sharding path"] = coeff_sharding_path(dev, card)
+    paths["mxu path"] = mxu_path(dev, card, keys_ref)
+    del keys_ref
     paths["resnet path"] = resnet_path(dev, card)
     torch.cuda.empty_cache()
     paths["fast path"] = fast_path(dev, card)
@@ -2955,6 +3244,15 @@ def main() -> int:
                  note="the NTT stages that cross column shards on an sp mesh: "
                  "on the TPU, GSPMD's stage exchanges around K2/K3 "
                  "(_fwd_kernel :131, _inv_kernel :199)", **cross)]
+    mxu_note = ("on the TPU an XLA composite (an int8 einsum on the MXU and its "
+                "recombination), the JAX package's default NTT at logN >= 14 "
+                "on <= 12 limbs, not a Pallas kernel")
+    rows += [dict(name="mxu_fwd", route="cuda", source=src + "mxu_ntt.cu",
+                  replaces="optimal_conv_tpu/core/mxu_ntt.py:305",
+                  note=mxu_note, **mxu["mxu_fwd"]),
+             dict(name="mxu_inv", route="cuda", source=src + "mxu_ntt.cu",
+                  replaces="optimal_conv_tpu/core/mxu_ntt.py:334",
+                  note=mxu_note, **mxu["mxu_inv"])]
     for row in rows:
         name = row["name"]
         row["launches"] = sum(c["launches"][name] for c in paths.values())

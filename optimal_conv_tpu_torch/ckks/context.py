@@ -200,12 +200,17 @@ class _KeyCache(MutableMapping):
 class CkksContext:
     """compress_keys: "auto" (seed-compressed keys from logN 14 on, as the
     JAX package), True or False.  key_cache_gib / key_expand_gib: the
-    key cache's resident and memo budgets in GiB."""
+    key cache's resident and memo budgets in GiB.  ntt_backend: the NTT's
+    route, "butterfly" (K2/K3 on the card), "mxu" (the four-step matrix
+    transform) or "auto" (the JAX package's default: the matrix route at
+    logN >= 14 on calls over at most 12 limbs); the JAX package's
+    ``OPTCONV_NTT_BACKEND``.  Every route gives the same residues."""
 
     def __init__(self, params: CkksParams, device, seed: int = 0,
                  compress_keys: bool | str = "auto",
                  key_cache_gib: float = KEY_CACHE_GIB,
-                 key_expand_gib: float = KEY_EXPAND_GIB):
+                 key_expand_gib: float = KEY_EXPAND_GIB,
+                 ntt_backend: str = "butterfly"):
         if compress_keys not in ("auto", True, False):
             raise ValueError(f"compress_keys={compress_keys!r}: 'auto', True "
                              "or False")
@@ -214,7 +219,7 @@ class CkksContext:
         self.compress_keys = (params.log_n >= 14 if compress_keys == "auto"
                               else compress_keys)
         self._key_budgets = (int(key_cache_gib * GIB), int(key_expand_gib * GIB))
-        self.tables = DeviceTables(params, self.device)
+        self.tables = DeviceTables(params, self.device, ntt_backend)
         self.encoder = Encoder(params, self.tables, self._encoder_rows())
         self.rng = np.random.default_rng(seed)
         self._seed = seed

@@ -117,13 +117,16 @@ class CkksParams:
 
 class DeviceTables:
     """The device-resident tables of one parameter set on one device:
-    the NTT context and, built on first use, the basis extenders and the
-    per-level inverse constants."""
+    the NTT context (on the route `ntt_backend`, ``core.ntt.BACKENDS``)
+    and, built on first use, the basis extenders and the per-level
+    inverse constants."""
 
-    def __init__(self, params: CkksParams, device: torch.device):
+    def __init__(self, params: CkksParams, device: torch.device,
+                 ntt_backend: str = "butterfly"):
         self.params = params
         self.device = device
-        self.ntt = nttmod.NttContext(params.moduli, params.log_n, device)
+        self.ntt = nttmod.NttContext(params.moduli, params.log_n, device,
+                                     backend=ntt_backend)
         self._cache: dict = {}
 
     def _get(self, key, build):

@@ -1,8 +1,8 @@
 """Command-line driver (counterpart of ``optimal_conv_tpu/cli.py``):
 
-    python -m optimal_conv_tpu_torch conv     <ker 3|5|7> <i_batch 0..3> <n_tests> [--no-bl] [--device cuda|cpu]
-    python -m optimal_conv_tpu_torch convReLU <ker 3|5|7> <i_batch 0..3> <n_tests> [--no-bl] [--debug] [--device cuda|cpu]
-    python -m optimal_conv_tpu_torch resnet   <ker> <depth 8|14|20> <wide 1|2|3> <n_tests> [cf100] [--fast] [--debug] [--device cuda|cpu]
+    python -m optimal_conv_tpu_torch conv     <ker 3|5|7> <i_batch 0..3> <n_tests> [--no-bl] [--device cuda|cpu] [--ntt butterfly|mxu|auto]
+    python -m optimal_conv_tpu_torch convReLU <ker 3|5|7> <i_batch 0..3> <n_tests> [--no-bl] [--debug] [--device cuda|cpu] [--ntt butterfly|mxu|auto]
+    python -m optimal_conv_tpu_torch resnet   <ker> <depth 8|14|20> <wide 1|2|3> <n_tests> [cf100] [--fast] [--debug] [--device cuda|cpu] [--ntt butterfly|mxu|auto]
 
 ``conv`` and ``convReLU`` first run the prior-art baseline ("Base Line
 start.", ``ops.baseline``: the slot-packed SISO conv over two
@@ -42,6 +42,12 @@ times, whether the argmax agrees and the precision of the logits.
 ``--debug`` prints the packed input first.
 
 The device defaults to CUDA and is never silently replaced by the CPU.
+``--ntt`` picks the route of every NTT of the command (the JAX
+package's ``OPTCONV_NTT_BACKEND``, ``CkksContext(ntt_backend=...)``):
+``butterfly`` (the default, K2/K3 on the card), ``mxu`` (the four-step
+matrix transform on the int8 tensor cores) or ``auto`` (the JAX
+package's default rule, tuned for the TPU); all give the same residues.
+On an H100 the butterfly is the fastest of the three.
 """
 
 from __future__ import annotations
@@ -282,7 +288,10 @@ def _sync(device: torch.device) -> None:
 
 
 def run_conv(ker_wid: int, i_batch: int, n_tests: int, device,
-             boot: bool = False, debug: bool = False) -> None:
+             ntt: str = "butterfly", boot: bool = False,
+             debug: bool = False) -> list:
+    """The paper's method on `n_tests` inputs → [(decrypted, expected)]
+    of each."""
     from .ckks.bootstrap import SplitBootstrapper
     from .ckks.context import CkksContext
     from .ckks.params import boot_params
@@ -292,13 +301,14 @@ def run_conv(ker_wid: int, i_batch: int, n_tests: int, device,
     params = boot_params(16)
     print(f"CKKS parameters: logN={params.log_n} h={params.h} "
           f"levels={len(params.logq)} scale=2^{params.log_scale} device={dev}")
-    ctx = CkksContext(params, dev, seed=0)
+    ctx = CkksContext(params, dev, seed=0, ntt_backend=ntt)
     if boot:
         t0 = time.perf_counter()
         btps = {0: SplitBootstrapper(ctx, log_sparse=0)}
         maps = conv_relu_maps(params, ker_wid, i_batch)
         print(f"Bootstrapper built in {time.perf_counter() - t0:.3f}s")
     rng = np.random.default_rng(0)
+    results = []
     for it in range(n_tests):
         print(f"{it + 1}-th iter... start")
         raw, ker, bn_a, bn_b, want = conv_inputs(ker_wid, i_batch, it, rng,
@@ -316,10 +326,12 @@ def run_conv(ker_wid: int, i_batch: int, n_tests: int, device,
         print(f"Conv{'+ReLU+boot' if boot else ' (with BN)'} done in "
               f"{conv_s:.3f}s")
         print(precision_stats(want, got, distribution=True))
+        results.append((got, want))
+    return results
 
 
 def run_conv_bl(ker_wid: int, i_batch: int, n_tests: int, device,
-                boot: bool = False) -> None:
+                ntt: str = "butterfly", boot: bool = False) -> None:
     """The prior-art baseline on the data ``run_conv`` then takes
     (main.go:639-643 → test_BL.go:16-185)."""
     from .ckks.context import CkksContext
@@ -330,7 +342,7 @@ def run_conv_bl(ker_wid: int, i_batch: int, n_tests: int, device,
     print(f"CKKS parameters: logN={params.log_n} logSlots={params.log_slots} "
           f"h={params.h} logQP~{sum(params.logq) + sum(params.logp)} "
           f"levels={len(params.logq)} scale=2^{params.log_scale} device={dev}")
-    ctx = CkksContext(params, dev, seed=0)
+    ctx = CkksContext(params, dev, seed=0, ntt_backend=ntt)
     btp = bl_bootstrapper(ctx) if boot else None
     rng = np.random.default_rng(0)
     for it in range(n_tests):
@@ -349,8 +361,8 @@ def run_conv_bl(ker_wid: int, i_batch: int, n_tests: int, device,
 
 
 def run_resnet(ker_wid: int, depth: int, wide: int, n_tests: int,
-               cf100: bool, device, debug: bool = False,
-               fast: bool = False) -> None:
+               cf100: bool, device, ntt: str = "butterfly",
+               debug: bool = False, fast: bool = False) -> None:
     from .ckks.context import CkksContext
     from .ckks.params import boot_params
     from .device import resolve_device
@@ -367,7 +379,7 @@ def run_resnet(ker_wid: int, depth: int, wide: int, n_tests: int,
     params = boot_params(16)
     print(f"CKKS parameters: logN={params.log_n} h={params.h} "
           f"levels={len(params.logq)} scale=2^{params.log_scale} device={dev}")
-    ctx = CkksContext(params, dev, seed=0)
+    ctx = CkksContext(params, dev, seed=0, ntt_backend=ntt)
     if fast:
         # wide 1 → testResNet_crop_fast_in (test.go:372); wide 2/3 →
         # testResNet_crop_fast_wide_in (test.go:914, main.go:264-345)
@@ -428,6 +440,13 @@ def main(argv=None) -> int:
         k = argv.index("--device")
         device = argv[k + 1]
         del argv[k: k + 2]
+    ntt = "butterfly"
+    if "--ntt" in argv:
+        k = argv.index("--ntt")
+        ntt = argv[k + 1]
+        del argv[k: k + 2]
+        if ntt not in ("butterfly", "mxu", "auto"):
+            raise SystemExit("--ntt must be butterfly, mxu or auto")
     debug = "--debug" in argv
     fast = "--fast" in argv
     skip_bl = "--no-bl" in argv
@@ -443,7 +462,8 @@ def main(argv=None) -> int:
             raise SystemExit("depth must be 8, 14 or 20")
         if wide not in RESNET_BATCHES:
             raise SystemExit("wide must be 1, 2 or 3")
-        run_resnet(ker, depth, wide, n, cf100, device, debug=debug, fast=fast)
+        run_resnet(ker, depth, wide, n, cf100, device, ntt, debug=debug,
+                   fast=fast)
         return 0
     if cmd not in ("conv", "convReLU"):
         raise SystemExit(f"unknown command {cmd}")
@@ -457,7 +477,7 @@ def main(argv=None) -> int:
     # (main.go:639-643)
     if not skip_bl:
         print("Base Line start.")
-        run_conv_bl(ker, ib, n, device, boot=boot)
+        run_conv_bl(ker, ib, n, device, ntt, boot=boot)
     print("Ours start.")
-    run_conv(ker, ib, n, device, boot=boot, debug=debug)
+    run_conv(ker, ib, n, device, ntt, boot=boot, debug=debug)
     return 0

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface and are compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library, loaded with ``ctypes``.
+Hopper (``sm_90a``), one ``nvcc`` a source, all started together, then
+linked into one shared library, loaded with ``ctypes``.
 The build runs at first use, never at import, into
 ``optimal_conv_tpu_torch/build/`` (listed in ``.gitignore``), keyed by a
 hash of the sources and flags so an edited kernel is rebuilt.  Each C
@@ -75,15 +76,33 @@ def lib() -> ctypes.CDLL:
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, so)
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        objs = [tmp.with_name(f"{s.stem}.{os.getpid()}.o") for s in srcs]
+        jobs = [[_nvcc(), *compile_flags, "-c", "-o", str(o), str(s)]
+                for s, o in zip(srcs, objs)]
+        try:
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for cmd in jobs]
+            # every compile is waited for before a failure is raised
+            outs = [proc.communicate()[0] for proc in procs]
+            for cmd, proc, out in zip(jobs, procs, outs):
+                _check_build(cmd, proc.returncode, out)
+            link = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]
+            res = subprocess.run(link, capture_output=True, text=True)
+            _check_build(link, res.returncode, res.stdout + res.stderr)
+            os.replace(tmp, so)
+        finally:
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
         build_seconds = time.perf_counter() - t0
     _lib = _bind(ctypes.CDLL(str(so)))
     return _lib
+
+
+def _check_build(cmd, code: int, output: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{output}")
 
 
 def _bind(dll: ctypes.CDLL) -> ctypes.CDLL:
@@ -105,6 +124,11 @@ def _bind(dll: ctypes.CDLL) -> ctypes.CDLL:
     dll.optconv_d1_regen.argtypes = [p] * 7 + [ctypes.c_uint, i32, i32, i32,
                                                i64, i32, i32, p]
     dll.optconv_d1_regen.restype = i32
+    # in, mid, out, row_limb, q, qinv, r1, c40, c80, nbytes, the two plane
+    # tables, tw; rows, l, batch and limb stride; log_n, inverse, planes;
+    # stream
+    dll.optconv_mxu_ntt.argtypes = [p] * 13 + [i64] * 4 + [i32] * 3 + [p]
+    dll.optconv_mxu_ntt.restype = i32
     return dll
 
 

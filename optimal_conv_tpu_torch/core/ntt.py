@@ -9,8 +9,11 @@ gather in the NTT domain.
 
 ``NttContext`` owns the per-limb tables as tensors on its device, built
 once per modulus chain and passed to the kernels at run time.
-``ntt``/``intt`` dispatch on the data's device: the plain reshape-stage
-network below on the CPU, the K2/K3 kernels (``ntt_kernel``) on CUDA.
+``ntt``/``intt`` pick a route per call, then dispatch on the data's
+device: the butterfly (the plain reshape-stage network below on the CPU,
+the K2/K3 kernels of ``ntt_kernel`` on CUDA) or the four-step matrix
+transform (``mxu_ntt``'s plain version on the CPU, ``mxu_kernel`` on
+CUDA).  Both give the same residues.
 """
 
 from __future__ import annotations
@@ -21,7 +24,17 @@ import numpy as np
 import torch
 
 from . import modmath as mm
-from . import ntt_kernel
+from . import mxu_kernel, mxu_ntt, ntt_kernel
+
+BACKENDS = ("butterfly", "mxu", "auto")
+# "auto" sends a transform over at most this many limbs to the matrix
+# route at logN >= MXU_MIN_LOG_N, as the JAX package's default does
+# (its OPTCONV_MXU_MAX_LIMBS, here a constant).  Both thresholds are the
+# TPU's tuning: on an H100 the matrix route is slower than K2/K3 at every
+# width (PERF.md), so "auto" is there for parity with the JAX package,
+# not for speed.
+MXU_MAX_LIMBS = 12
+MXU_MIN_LOG_N = 14
 
 
 def bit_reverse_perm(n: int) -> np.ndarray:
@@ -61,9 +74,21 @@ def _tables_for_prime(q: int, log_n: int):
 
 class NttContext:
     """NTT tables for a list of RNS moduli at ring degree 2^log_n, as
-    tensors on `device`, indexed by global limb index."""
+    tensors on `device`, indexed by global limb index.
 
-    def __init__(self, moduli, log_n: int, device: torch.device):
+    backend: the route of every transform call, the counterpart of the
+    JAX package's ``OPTCONV_NTT_BACKEND``: "butterfly" (its xla,
+    xla_loop and pallas schedules, one network; K2/K3 on the card),
+    "mxu" (the four-step matrix transform) or "auto" (JAX's default
+    rule, ``resolved_backend``).  The matrix route's tables are built at
+    its first call."""
+
+    def __init__(self, moduli, log_n: int, device: torch.device,
+                 backend: str = "butterfly"):
+        if backend not in BACKENDS:
+            raise ValueError(f"ntt backend {backend!r}: use "
+                             + "|".join(BACKENDS))
+        self.backend = backend
         self.log_n = log_n
         self.n = 1 << log_n
         self.moduli = [int(q) for q in moduli]
@@ -84,6 +109,28 @@ class NttContext:
         self._tabs: dict = {}
         self._plain: dict = {}
         self._rows: dict = {}
+        self._mxu_tabs = None
+
+    def resolved_backend(self, idx) -> str:
+        """The route of one transform call over the limbs `idx`: the
+        JAX package's ``NttContext._resolved_backend`` with its butterfly
+        schedules as one.  "auto": the butterfly below logN 14, the matrix
+        route for at most MXU_MAX_LIMBS limbs, the butterfly above."""
+        if self.backend != "auto":
+            return self.backend
+        if self.log_n < MXU_MIN_LOG_N or len(idx) > MXU_MAX_LIMBS:
+            return "butterfly"
+        return "mxu"
+
+    def mxu_tables(self) -> mxu_ntt.MxuNttTables:
+        """The matrix route's tables on this context's device, built at
+        the first call (as the JAX package's ``NttContext._mxu``)."""
+        if self._mxu_tabs is None:
+            psi = np.stack([_tables_for_prime(q, self.log_n)[0]
+                            for q in self.moduli])
+            self._mxu_tabs = mxu_ntt.MxuNttTables(self.moduli, self.log_n,
+                                                  psi, self.device)
+        return self._mxu_tabs
 
     def _select(self, idx: tuple[int, ...]) -> torch.Tensor:
         return torch.tensor(list(idx), dtype=torch.int64, device=self.device)
@@ -122,6 +169,8 @@ class NttContext:
         idx = tuple(range(a.shape[-2])) if idx is None else tuple(idx)
         if len(idx) != a.shape[-2]:
             raise ValueError(f"{len(idx)} limb indices for {a.shape[-2]} rows")
+        if self.resolved_backend(idx) == "mxu":
+            return self._mxu_transform(a, idx, inverse)
         if a.device.type == "cpu":
             q, qinv = self.tabs(idx)[:2]
             psi, ipsi, ninv = self.plain_tabs(idx)
@@ -133,6 +182,13 @@ class NttContext:
             a, self._row_limb(idx, batch), self.q_vec, self.qinv_vec,
             self.ipsi_br if inverse else self.psi_br, self.n_inv, self.log_n,
             inverse)
+
+    def _mxu_transform(self, a: torch.Tensor, idx, inverse: bool):
+        tabs = self.mxu_tables()
+        if a.device.type == "cpu":
+            plain = mxu_ntt.mxu_inv_plain if inverse else mxu_ntt.mxu_fwd_plain
+            return plain(a, idx, tabs)
+        return mxu_kernel.mxu_cuda(a, idx, tabs, inverse)
 
     def ntt(self, a: torch.Tensor, idx=None) -> torch.Tensor:
         """Forward negacyclic NTT: [..., l, N] natural order → bit-rev.

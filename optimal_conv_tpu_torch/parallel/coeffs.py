@@ -290,10 +290,14 @@ class CoeffShardedContext(CkksContext):
     (and the key-switch and rescale pieces a limb-sharded step calls) run
     unchanged on a ciphertext's column shards (``sharding.shard_ct``), and
     on whole ciphertexts as the single device does.  Hoisted rotations
-    are not carried over to shards."""
+    are not carried over to shards.  Its NTT runs on column shards, so it
+    takes only the butterfly route (``ntt_backend="butterfly"``)."""
 
     def __init__(self, params: CkksParams, device, mesh: Mesh, seed: int = 0,
                  **kw):
+        if kw.get("ntt_backend", "butterfly") != "butterfly":
+            raise ValueError(f"ntt_backend={kw['ntt_backend']!r}: an sp "
+                             "context's NTT is the butterfly on column shards")
         self.mesh = mesh
         self._coeffs = None
         super().__init__(params, device, seed=seed, **kw)

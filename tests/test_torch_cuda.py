@@ -18,7 +18,7 @@ from optimal_conv_tpu_torch.ckks.context import CkksContext, SwitchingKey
 from optimal_conv_tpu_torch.ckks.params import boot_params, mini_boot_params
 from optimal_conv_tpu_torch.core import modmath as mm
 from optimal_conv_tpu_torch.core import d1_kernel, mont_kernel, ntt_kernel
-from optimal_conv_tpu_torch.core import threefry
+from optimal_conv_tpu_torch.core import mxu_kernel, mxu_ntt, threefry
 from optimal_conv_tpu_torch.core.ntt import (NttContext, _ntt_fwd, _ntt_inv,
                                              galois_perm_ntt, rot_to_galois)
 
@@ -372,6 +372,79 @@ def test_sharded_step_dryrun_on_card(dev):
     assert sharding.dryrun(1, log_n=12, device=dev) == {}
     for s in (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV):
         assert s.launches > 0 and s.plain_calls == 0
+
+
+@pytest.mark.parametrize("log_n", [10, 12, 16])
+def test_mxu_kernel_equals_plain_and_butterfly(dev, log_n):
+    """The matrix NTT's kernel on mixed-width rows (the fork's 4-, 6-, 7- and
+    8-byte limbs in one call, a batch of two; B = 4, 16 and 256, so padded
+    and whole tiles), forward and inverse, against its plain version on the
+    card and against K2/K3; the round trip; the wrapper called alone; a
+    strided view read in place and left as it was."""
+    mods = boot_params(16).moduli
+    ctx = NttContext(mods, log_n, dev, backend="mxu")
+    bfly = NttContext(mods, log_n, dev)
+    tabs = ctx.mxu_tables()
+    rng = np.random.default_rng(log_n)
+    n = 1 << log_n
+    idx = (5, 4, 0, 2, 28)
+    acc = _residues([mods[i] for i in (1,) + idx], (2, 6, n), rng, dev)
+    x = acc[:, 1:, :]
+    keep = acc.clone()
+    assert [tabs.nbytes[i] for i in idx] == [4, 6, 7, 8, 8]
+    for s in (mxu_kernel.STATS_FWD, mxu_kernel.STATS_INV):
+        s.reset()
+    f = ctx.ntt(x, idx)
+    back = ctx.intt(f, idx)
+    assert (mxu_kernel.STATS_FWD.launches, mxu_kernel.STATS_INV.launches) == (1, 1)
+    assert torch.equal(f, mxu_ntt.mxu_fwd_plain(x, idx, tabs))
+    assert torch.equal(f, bfly.ntt(x, idx))
+    assert torch.equal(back, mxu_ntt.mxu_inv_plain(f, idx, tabs))
+    assert torch.equal(back, bfly.intt(f, idx))
+    assert torch.equal(back, x) and torch.equal(acc, keep)
+    for inverse, src, want in ((False, x, f), (True, f, back)):
+        assert torch.equal(mxu_kernel.mxu_cuda(src, idx, tabs, inverse), want)
+    assert (mxu_kernel.STATS_FWD.plain_calls, mxu_kernel.STATS_INV.plain_calls
+            ) == (1, 1)
+
+
+def test_mxu_route_on_unindexed_cuda_device(dev):
+    """A context built on "cuda" (no index) takes the matrix route and
+    equals the butterfly; the wrapper refuses tables on another device and
+    a limb list of the wrong length."""
+    mods = boot_params(16).moduli[:6]
+    ctx = NttContext(mods, 12, "cuda", backend="mxu")
+    bfly = NttContext(mods, 12, "cuda")
+    x = _residues(mods, (2, 6, 1 << 12), np.random.default_rng(8), "cuda")
+    idx = tuple(range(6))
+    before = mxu_kernel.STATS_FWD.launches
+    assert torch.equal(ctx.ntt(x, idx), bfly.ntt(x, idx))
+    assert mxu_kernel.STATS_FWD.launches == before + 1
+    with pytest.raises(ValueError, match="limbs"):
+        mxu_kernel.mxu_cuda(x, idx[:5], ctx.mxu_tables(), False)
+    cpu_tabs = NttContext(mods, 12, "cpu", backend="mxu").mxu_tables()
+    with pytest.raises(ValueError, match="tables on cpu"):
+        mxu_kernel.mxu_cuda(x, idx, cpu_tabs, False)
+
+
+def test_mxu_route_auto_on_card(dev):
+    """"auto" at logN 16: a call over 12 limbs launches the matrix kernel,
+    one over 13 launches K2; at logN 12 both launch K2; the results equal."""
+    mods = boot_params(16).moduli
+    rng = np.random.default_rng(3)
+    for log_n, want12 in ((16, "mxu"), (12, "butterfly")):
+        ctx = NttContext(mods, log_n, dev, backend="auto")
+        bfly = NttContext(mods, log_n, dev)
+        for limbs, want in ((12, want12), (13, "butterfly")):
+            idx = tuple(range(limbs))
+            assert ctx.resolved_backend(idx) == want
+            a = _residues([mods[i] for i in idx], (limbs, 1 << log_n), rng, dev)
+            counts = [s.launches for s in (mxu_kernel.STATS_FWD,
+                                           ntt_kernel.STATS_FWD)]
+            assert torch.equal(ctx.ntt(a, idx), bfly.ntt(a, idx))
+            assert ([mxu_kernel.STATS_FWD.launches - counts[0],
+                     ntt_kernel.STATS_FWD.launches - counts[1]]
+                    == ([1, 1] if want == "mxu" else [0, 2]))
 
 
 def test_kernels_reject_bad_input(dev):
