@@ -1,0 +1,9 @@
+"""Share of the profiled conv requests' window in which no device event
+ran."""
+
+
+def read(rec):
+    if rec.get("kind") != "conv":
+        return None
+    p = rec["profile"]
+    return 100.0 * (1.0 - p["busy_s"] / p["window_s"])
