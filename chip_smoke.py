@@ -231,7 +231,7 @@ from optimal_conv_tpu_torch.parallel import coeffs as coeffs_mod
 from optimal_conv_tpu_torch.parallel import sharding as shd
 from optimal_conv_tpu_torch.parallel.limbs import (LimbPlacement,
                                                    LimbShardedContext)
-from optimal_conv_tpu_torch.utils import kernel_info, mont_bench
+from optimal_conv_tpu_torch.utils import kernel_info, mont_bench, tracing
 from optimal_conv_tpu_torch.utils.timing import cuda_ms, cuda_ms_cold
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1315,15 +1315,24 @@ def _err_line(what, err, bar) -> None:
           f"{what}: max err {err.max()} >= {bar}")
 
 
+def _builds_so_far() -> str:
+    """The bootstrapper builds of this process, from the port's counters."""
+    c = tracing.counters()
+    return (f"bootstrappers built so far: {c.get('boot.builds', 0)} in "
+            f"{c.get('boot.build_s', 0.0):.2f} s")
+
+
 def boot_path(ctx, dev, fam, ls: int) -> None:
     """Phase 8: one bootstrap by its two halves at log_sparse `ls`.
     Seeded coefficients in [-1, 1] (at stride 2^ls) at scale delta0 and
     level 0; ctos against the bit-reversed coefficients, stoc against
     the coefficients."""
     p = ctx.params
+    built = tracing.counters().get("boot.build_s", 0.0)
     btp = fam[ls]
+    built = tracing.counters().get("boot.build_s", 0.0) - built
     torch.cuda.synchronize(dev)
-    print(f"bootstrapper log_sparse {ls}: built in {fam.build_seconds[ls]:.2f} s "
+    print(f"bootstrapper log_sparse {ls}: built in {built:.2f} s "
           f"(host: slot encoding of every diagonal)")
     describe_btp(btp, f"bootstrapper log_sparse {ls}")
     v = np.zeros(p.n)
@@ -1765,9 +1774,7 @@ def drive_images(label, ctx, dev, card, runner, w, images) -> list:
                   f"launches {json.dumps(row['launches'])}")
         print(f"{label} image {i}, {card}: total {total * 1e3:.1f} ms; blocks ms "
               + json.dumps({k: round(v * 1e3, 1) for k, v in timings.items()})
-              + "; bootstrappers built in s "
-              + json.dumps({k: round(v, 2) for k, v in
-                            runner.btps.build_seconds.items()}))
+              + "; " + _builds_so_far())
         print(f"{label} image {i}: argmax {int(np.argmax(logits))} vs plain "
               f"{int(np.argmax(plain))} ({'agree' if agree[-1] else 'DIFFER'})"
               f"; max |logit - plain| {logit_err:.4e} (bar 0.15, as the JAX "
@@ -2910,9 +2917,7 @@ def imagenet_image(label, ctx, dev, card, model) -> None:
           f"bootstrappers made ({total * 1e3:.1f} ms with the checks); "
           "blocks ms "
           + json.dumps({k: round(v, 1) for k, v in blocks.items()})
-          + "; bootstrappers built in s "
-          + json.dumps({k: round(v, 2) for k, v in
-                        runner.btps.build_seconds.items()}))
+          + "; " + _builds_so_far())
     feat = y.mean((0, 1))
     got = runner.features(cfs)
     err = float(np.abs(got - feat).max())
@@ -3157,8 +3162,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cuda_lib.lib()
-    print(f"kernel build + load {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {cuda_lib.build_seconds} s)")
+    print(f"kernel build + load {time.perf_counter() - t0:.2f} s")
     rates = Card(dev)
 
     p = boot_params(16)

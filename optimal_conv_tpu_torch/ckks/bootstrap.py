@@ -41,6 +41,7 @@ import torch
 
 from ..core import modmath as mm
 from ..core import ntt as nttmod
+from ..utils import tracing
 from . import dft
 from .context import CkksContext
 from .polyeval import _depth_of as _depth_of_deg
@@ -502,37 +503,39 @@ class SplitBootstrapper:
         Output values are the plaintext coefficients (÷2^pow still
         applied by caller convention), at the ReLU region's scale.
         on_stage(name, value), when given, is called after the raise and
-        SubSum, after each transform and after EvalMod."""
+        SubSum, after each transform and after EvalMod; while spans are
+        recorded the same points end stage spans (``utils/tracing.py``)."""
         ctx = self.ctx
         p = ctx.params
-        mark = on_stage or (lambda name, value: None)
-        ct = mod_raise(ctx, ct)
-        # SubSum: project onto the stride-2^ls subring (kills inter-stride
-        # garbage; scales kept coeffs by 2^ls, folded into the diagonals)
-        for j in range(self.ls):
-            g = (2 * p.n) // (1 << (j + 1)) + 1
-            ct = ctx.add(ct, ctx.apply_galois(ct, g))
-        mark("ctos.raise+subsum", ct)
-        for i, lt in enumerate(self.ctos_lt):
-            ct = lt(ct)
-            mark(f"ctos.lt{i}", ct)
-        if self.ls == 0:
+        with tracing.stages(None, on_stage) as mark:
+            ct = mod_raise(ctx, ct)
+            # SubSum: project onto the stride-2^ls subring (kills inter-
+            # stride garbage; scales kept coeffs by 2^ls, folded into the
+            # diagonals)
+            for j in range(self.ls):
+                g = (2 * p.n) // (1 << (j + 1)) + 1
+                ct = ctx.add(ct, ctx.apply_galois(ct, g))
+            mark("ctos.raise+subsum", ct)
+            for i, lt in enumerate(self.ctos_lt):
+                ct = lt(ct)
+                mark(f"ctos.lt{i}", ct)
+            if self.ls == 0:
+                cj = ctx.conjugate(ct)
+                up = ctx.add(ct, cj)
+                low = ctx.div_by_i(ctx.sub(ct, cj))
+                mark("ctos.conj", (up, low))
+                up = self._eval_mod(up)
+                low = self._eval_mod(low)
+                mark("ctos.evalmod", (up, low))
+                return up, low
             cj = ctx.conjugate(ct)
-            up = ctx.add(ct, cj)
-            low = ctx.div_by_i(ctx.sub(ct, cj))
-            mark("ctos.conj", (up, low))
-            up = self._eval_mod(up)
-            low = self._eval_mod(low)
-            mark("ctos.evalmod", (up, low))
-            return up, low
-        cj = ctx.conjugate(ct)
-        a = ctx.mul_plain(ct, self.fold_a_pt)
-        b = ctx.mul_plain(cj, self.fold_b_pt)
-        folded = ctx.rescale(ctx.add(a, b))
-        mark("ctos.fold", folded)
-        out = self._eval_mod(folded)
-        mark("ctos.evalmod", out)
-        return out, None
+            a = ctx.mul_plain(ct, self.fold_a_pt)
+            b = ctx.mul_plain(cj, self.fold_b_pt)
+            folded = ctx.rescale(ctx.add(a, b))
+            mark("ctos.fold", folded)
+            out = self._eval_mod(folded)
+            mark("ctos.evalmod", out)
+            return out, None
 
     def _eval_mod(self, ct: Ciphertext) -> Ciphertext:
         """values y = payload/(K·q0) → values payload/Δ0, scale ≈ Δ."""
@@ -583,10 +586,10 @@ class SplitBootstrapper:
         lvl0 = self.stoc_lt[0].level
         if ct.level > lvl0:
             ct = ctx.drop_level(ct, ct.level - lvl0)
-        mark = on_stage or (lambda name, value: None)
-        for i, lt in enumerate(self.stoc_lt):
-            ct = lt(ct)
-            mark(f"stoc.lt{i}", ct)
+        with tracing.stages(None, on_stage) as mark:
+            for i, lt in enumerate(self.stoc_lt):
+                ct = lt(ct)
+                mark(f"stoc.lt{i}", ct)
         return ct
 
 
@@ -604,7 +607,9 @@ class BootstrapperFamily:
     The fork keeps all 5 bootstrappers resident for the whole run
     (btp..btp5, main.go:480-505).  max_live=None does the same; an
     integer keeps at most that many, dropping the least recently used.
-    ``build_seconds`` records each build's host time."""
+    A build is a span ``boot.build`` (attribute log_sparse) and adds to
+    the counters ``boot.builds`` and ``boot.build_s``, its host seconds
+    (``utils/tracing.py``)."""
 
     def __init__(self, ctx: CkksContext, boot_kwargs: dict | None = None,
                  max_live: int | None = None):
@@ -612,7 +617,6 @@ class BootstrapperFamily:
         self.kwargs = dict(boot_kwargs or {})
         self.max_live = max_live
         self._live: dict[int, SplitBootstrapper] = {}
-        self.build_seconds: dict[int, float] = {}
 
     def __getitem__(self, ls: int) -> SplitBootstrapper:
         btp = self._live.pop(ls, None)
@@ -620,8 +624,10 @@ class BootstrapperFamily:
             while self.max_live is not None and len(self._live) >= self.max_live:
                 self._live.pop(next(iter(self._live)))
             t0 = time.perf_counter()
-            btp = SplitBootstrapper(self.ctx, log_sparse=ls, **self.kwargs)
-            self.build_seconds[ls] = time.perf_counter() - t0
+            with tracing.span("boot.build", log_sparse=ls):
+                btp = SplitBootstrapper(self.ctx, log_sparse=ls, **self.kwargs)
+            tracing.count("boot.builds")
+            tracing.count("boot.build_s", time.perf_counter() - t0)
         self._live[ls] = btp                 # most recently used last
         return btp
 

@@ -19,6 +19,13 @@ seed of its uniform half d1, which ``swk_d1`` regenerates
 (``core/threefry.py``, on the card the ``d1_regen`` kernel) and
 memoises on the key.  Eviction is transparent: a key's seed is a
 function of its tag (``_key_seed``), so a key made again is the same key.
+The cache counts its work (``utils/tracing.py`` counters): ``keys.hit``
+and ``keys.made`` (a tag found, a key drawn), ``keys.evicted`` (a whole
+key dropped by the resident budget), ``keys.memo_dropped`` (a d1 memo
+dropped by the memo budget) and ``keys.d1_drawn`` (a d1 regenerated from
+its seed); the gauges ``keys.d0_bytes`` / ``keys.d1_bytes`` sum the two
+tiers over the live caches.  The public evaluator ops (``EVALUATOR_OPS``)
+are timed as the outermost evaluator calls while spans are recorded.
 
 Polynomials are ``[..., l+1, N]`` int64 tensors on the context's device,
 NTT (bit-reversed) domain and standard form.  The evaluator reads which
@@ -41,6 +48,7 @@ package's (tests import d0 through ``interop``).
 from __future__ import annotations
 
 import hashlib
+import weakref
 from collections import OrderedDict
 from collections.abc import MutableMapping
 from dataclasses import dataclass
@@ -52,6 +60,7 @@ from ..core import modmath as mm
 from ..core import ntt as nttmod
 from ..core import threefry
 from ..device import resolve_device
+from ..utils import tracing
 from .encoding import Encoder
 from .params import CkksParams, DeviceTables
 from .types import Ciphertext, Plaintext
@@ -78,6 +87,21 @@ GIB = 1 << 30
 # memos of regenerated d1.
 KEY_CACHE_GIB = 16.0
 KEY_EXPAND_GIB = 16.0
+
+# the evaluator ops tallied as evaluator calls in the open span
+EVALUATOR_OPS = (
+    "add", "sub", "neg", "add_plain", "add_const", "mul_plain",
+    "mul_scalar_int", "mul_const", "mul_ct", "square", "rescale",
+    "drop_level", "set_scale", "keyswitch", "apply_galois", "rotate",
+    "conjugate", "rotate_hoisted", "rotate_hoisted_lazy", "galois_acc",
+    "ks_finish", "mul_monomial", "mul_by_i", "div_by_i")
+
+# the live key caches, for the gauges
+_CACHES: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
+tracing.gauge("keys.d0_bytes",
+              lambda: sum(c.d0_bytes for c in _CACHES.values()))
+tracing.gauge("keys.d1_bytes",
+              lambda: sum(c.d1_bytes for c in _CACHES.values()))
 
 
 class _KeyCache(MutableMapping):
@@ -111,6 +135,7 @@ class _KeyCache(MutableMapping):
         self.d1_bytes = 0
         self.evict_mru = policy == "mru"
         self._evict_n = 0
+        _CACHES[id(self)] = self
 
     @staticmethod
     def _size0(swk: SwitchingKey) -> int:
@@ -179,6 +204,8 @@ class _KeyCache(MutableMapping):
             for swk in list(self.d.values())[:-1]:
                 if self.d1_bytes <= self.expand_bytes:
                     break
+                if self._memo(swk):
+                    tracing.count("keys.memo_dropped")
                 self.forget(swk)
         # resident tier: evict whole keys; mru drops the second-most-
         # recent entry, lru the coldest
@@ -191,6 +218,7 @@ class _KeyCache(MutableMapping):
             else:
                 _, old = self.d.popitem(last=False)
             self._refund(old)
+            tracing.count("keys.evicted")
 
     def _refund(self, old: SwitchingKey):
         self.d0_bytes -= self._size0(old)
@@ -205,6 +233,10 @@ class CkksContext:
     transform) or "auto" (the JAX package's default: the matrix route at
     logN >= 14 on calls over at most 12 limbs); the JAX package's
     ``OPTCONV_NTT_BACKEND``.  Every route gives the same residues."""
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        tracing.time_methods(cls, EVALUATOR_OPS)
 
     def __init__(self, params: CkksParams, device, seed: int = 0,
                  compress_keys: bool | str = "auto",
@@ -329,6 +361,7 @@ class CkksContext:
         c0 = mm.add_mod(mm.sub_mod(e_ntt, c1s, q), m, q)
         return Ciphertext(c0, c1, level=level, scale=pt.scale)
 
+    @tracing.spanned("decrypt")
     def decrypt_to_coeffs(self, ct: Ciphertext) -> np.ndarray:
         """→ [l+1, N] coefficient-domain residues of m + noise (host)."""
         idx = self.params.q_idx(ct.level)
@@ -373,6 +406,7 @@ class CkksContext:
         from `seed` read directly as the Montgomery form of another
         uniform one.  A compressed key keeps d0 and the seed; ``swk_d1``
         draws a again; its first draw stays on the key as the memo."""
+        tracing.count("keys.made")
         p = self.params
         qp = self.qp_rows(level)
         q, qinv, r2, _ = self.ntt.tabs(qp)
@@ -410,16 +444,24 @@ class CkksContext:
         if swk.d1 is not None:
             return swk.d1
         if swk.d1_cache is None:
+            tracing.count("keys.d1_drawn")
             d1 = self._uniform_mont(swk.seed, swk.d0.shape[0], swk.level,
                                     swk.perm)
             self._swk_cache.memoise(swk, d1)
             return d1
         return swk.d1_cache
 
+    def _hit(self, key) -> SwitchingKey | None:
+        """The cached key of `key` (counted as a hit), or None."""
+        swk = self._swk_cache.get(key)
+        if swk is not None:
+            tracing.count("keys.hit")
+        return swk
+
     def relin_key(self, level: int) -> SwitchingKey:
         """Switching key s² → s at `level` (generated on first use)."""
         key = ("rlk", level)
-        swk = self._swk_cache.get(key)
+        swk = self._hit(key)
         if swk is None:
             swk = self.gen_switching_key(
                 self._rows(self.sk2_ntt, self.qp_rows(level)), level,
@@ -432,7 +474,7 @@ class CkksContext:
         p = self.params
         g = g % (2 * p.n)
         key = ("gal", g, level)
-        swk = self._swk_cache.get(key)
+        swk = self._hit(key)
         if swk is None:
             qp = self.qp_rows(level)
             src, flip = nttmod.galois_perm_coeff(p.log_n, g)
@@ -462,7 +504,7 @@ class CkksContext:
         p = self.params
         g = g % (2 * p.n)
         key = ("galh", g, level)
-        swk = self._swk_cache.get(key)
+        swk = self._hit(key)
         if swk is None:
             fresh = ("gal", g, level) not in self._swk_cache
             base = self.galois_key(g, level)
@@ -899,6 +941,9 @@ class CkksContext:
 
     def div_by_i(self, a: Ciphertext) -> Ciphertext:
         return self.mul_monomial(a, 3 * self.params.n // 2)
+
+
+tracing.time_methods(CkksContext, EVALUATOR_OPS)
 
 
 def _same_level_scale(a, b) -> None:

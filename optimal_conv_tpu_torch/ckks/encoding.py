@@ -18,6 +18,10 @@ p(w^{5^t}), w = e^{2πi/(4n)}.  Left rotation by r (slot t ← t + r) is
 the Galois automorphism X → X^{5^r}; conjugation is X → X^{-1}.  For
 log_slots < log_n − 1 the 2n coefficients sit at stride N/(2n) in the
 big ring and the slot values repeat.
+
+Each encode is a span ``encode`` (``utils/tracing.py``); the counter
+``encode.bytes_up`` counts the residue bytes uploaded from pageable host
+memory to a card.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core import modmath as mm
+from ..utils import tracing
 from .params import CkksParams, DeviceTables
 from .types import Plaintext
 
@@ -83,6 +88,7 @@ class Encoder:
 
     # ---- coefficient packing ---------------------------------------------
 
+    @tracing.spanned("encode")
     def encode_coeffs(self, values: np.ndarray, scale: float, level: int,
                       mont: bool = True) -> Plaintext:
         """Real vector (len ≤ N, zero-padded) → NTT-domain plaintext at
@@ -106,6 +112,7 @@ class Encoder:
 
     # ---- slot packing (canonical embedding) ------------------------------
 
+    @tracing.spanned("encode")
     def encode_slots(self, z: np.ndarray, scale: float, level: int,
                      log_slots: int | None = None, mont: bool = True,
                      qp: bool = False) -> Plaintext:
@@ -148,6 +155,8 @@ class Encoder:
             big = np.array([int(x) for x in ints], dtype=object)
             res = mm.centered_to_residues(big, mods)
         ntt = self.tables.ntt
+        if ntt.device.type != "cpu":
+            tracing.count("encode.bytes_up", res.nbytes)
         poly = ntt.ntt(torch.from_numpy(res).to(ntt.device), idx)
         if mont:
             q, qinv, r2, _ = ntt.tabs(idx)

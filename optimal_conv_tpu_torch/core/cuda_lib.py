@@ -19,7 +19,8 @@ import os
 import pathlib
 import shutil
 import subprocess
-import time
+
+from ..utils import tracing
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -28,27 +29,32 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _lib: ctypes.CDLL | None = None
-build_seconds: float | None = None     # wall time of this process's build
 
 
 class KernelStats:
     """Per-kernel counters: launches of the CUDA kernel by its wrapper
     (in all, and by the number of rows of the call), and calls of its
-    plain PyTorch version (any device)."""
+    plain PyTorch version (any device).  They report into
+    ``utils/tracing.counters()``."""
 
     def __init__(self, name: str):
         self.name = name
         self.reset()
+        tracing.register(self)
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
         self.by_rows: collections.Counter = collections.Counter()
 
-    def launched(self, rows: int) -> None:
-        """Called by the wrapper right after it launched its kernel."""
+    def launched(self, rows: int, t0: int = 0) -> None:
+        """Called by the wrapper right after it launched its kernel; `t0`
+        is ``tracing.stamp()`` taken at the wrapper's entry (0 when not
+        recording), and the call is tallied in the open span."""
         self.launches += 1
         self.by_rows[rows] += 1
+        if t0:
+            tracing.kernel_call(self.name, rows, t0)
 
 
 def _nvcc() -> str:
@@ -63,7 +69,7 @@ def _nvcc() -> str:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
-    global _lib, build_seconds
+    global _lib
     if _lib is not None:
         return _lib
     srcs = sorted(CSRC.glob("*.cu"))
@@ -75,7 +81,6 @@ def lib() -> ctypes.CDLL:
     if not so.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
         compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
         objs = [tmp.with_name(f"{s.stem}.{os.getpid()}.o") for s in srcs]
         jobs = [[_nvcc(), *compile_flags, "-c", "-o", str(o), str(s)]
@@ -95,7 +100,6 @@ def lib() -> ctypes.CDLL:
         finally:
             for f in (*objs, tmp):
                 f.unlink(missing_ok=True)
-        build_seconds = time.perf_counter() - t0
     _lib = _bind(ctypes.CDLL(str(so)))
     return _lib
 

@@ -13,6 +13,7 @@ import functools
 
 import torch
 
+from ..utils import tracing
 from . import cuda_lib
 
 STATS = cuda_lib.KernelStats("d1_regen")
@@ -63,6 +64,7 @@ def d1_regen_cuda(seed: int, beta: int, q: torch.Tensor, qinv: torch.Tensor,
     key) or the |qp| global rows, each below `nqp`, of a key of `nqp`
     limbs a digit, drawn at their counters there.  Raises on anything
     else."""
+    t0 = tracing.stamp()
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("d1_regen_cuda needs CUDA tensors")
@@ -103,5 +105,5 @@ def d1_regen_cuda(seed: int, beta: int, q: torch.Tensor, qinv: torch.Tensor,
             nqp_local, nqp_g, n, THREADS, rpb,
             torch._C._cuda_getCurrentRawStream(dev.index))
     cuda_lib.check(code, "d1_regen kernel")
-    STATS.launched(beta * nqp_local)
+    STATS.launched(beta * nqp_local, t0)
     return out

@@ -27,6 +27,7 @@ import functools
 
 import torch
 
+from ..utils import tracing
 from . import cuda_lib
 
 STATS = cuda_lib.KernelStats("mont_mul")
@@ -173,6 +174,7 @@ def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor,
     """a·b·2^-64 mod q on the card or, with `c`, (a·b·2^-64)·c·2^-64 mod q
     in the same pass.  Raises unless every operand is an int64 CUDA
     tensor on one device."""
+    t0 = tracing.stamp()
     dev = a.device
     ops = (a, b, q, qinv) if c is None else (a, b, q, qinv, c)
     for t in ops:
@@ -202,5 +204,5 @@ def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor,
         with torch.cuda.device(dev):
             code = _launch(pl, out, a, b, q, qinv, q if c is None else c)
     cuda_lib.check(code, "mont_mul kernel")
-    STATS.launched(pl.rows)
+    STATS.launched(pl.rows, t0)
     return out

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from . import cuda_lib
 from .ntt_kernel import _row_strides
 
@@ -38,6 +39,7 @@ def mxu_cuda(a: torch.Tensor, idx, tabs, inverse: bool) -> torch.Tensor:
 
     `a` is read in place when its rows have unit stride and its leading
     dims collapse to one batch stride; any other view is copied once."""
+    t0 = tracing.stamp()
     dev = a.device
     if dev.type != "cuda":
         raise ValueError("mxu_cuda needs a CUDA tensor")
@@ -76,5 +78,5 @@ def mxu_cuda(a: torch.Tensor, idx, tabs, inverse: bool) -> torch.Tensor:
             strides[0], strides[1], tabs.log_n, int(inverse), planes, stream)
     cuda_lib.check(code, "inverse matrix NTT kernel" if inverse
                    else "matrix NTT kernel")
-    (STATS_INV if inverse else STATS_FWD).launched(rows)
+    (STATS_INV if inverse else STATS_FWD).launched(rows, t0)
     return out

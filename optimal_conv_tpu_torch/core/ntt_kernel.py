@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from ..utils import tracing
 from . import cuda_lib
 
 STATS_FWD = cuda_lib.KernelStats("ntt_fwd")
@@ -124,6 +125,7 @@ def ntt_cuda(a: torch.Tensor, row_limb: torch.Tensor, q: torch.Tensor,
     stride and its leading dims collapse to one batch stride (any slice
     of the limb dim of a contiguous tensor does); any other view is
     copied once with ``.contiguous()``."""
+    t0 = tracing.stamp()
     n = 1 << log_n
     dev = a.device
     if dev.type != "cuda":
@@ -157,7 +159,7 @@ def ntt_cuda(a: torch.Tensor, row_limb: torch.Tensor, q: torch.Tensor,
                                strides[0], strides[1], log_n, int(inverse),
                                *ints, stream)
     cuda_lib.check(code, "inverse NTT kernel" if inverse else "NTT kernel")
-    (STATS_INV if inverse else STATS_FWD).launched(rows)
+    (STATS_INV if inverse else STATS_FWD).launched(rows, t0)
     return out
 
 
@@ -173,6 +175,7 @@ def ntt_cross_cuda(mine: torch.Tensor, theirs: torch.Tensor,
     [rows, n] view; q, qinv, w: int64 [L] indexed by limb (w the stage's
     twiddle of each limb, Montgomery form).  A view that is not
     contiguous or not 16-byte aligned is copied once."""
+    t0 = tracing.stamp()
     dev = mine.device
     if dev.type != "cuda":
         raise ValueError("ntt_cross_cuda needs a CUDA tensor")
@@ -210,5 +213,5 @@ def ntt_cross_cuda(mine: torch.Tensor, theirs: torch.Tensor,
                                      w.data_ptr(), rows, log_n, int(upper),
                                      int(inverse), stream)
     cuda_lib.check(code, "NTT cross-stage kernel")
-    STATS_CROSS.launched(rows)
+    STATS_CROSS.launched(rows, t0)
     return out

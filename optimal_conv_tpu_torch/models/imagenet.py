@@ -24,7 +24,9 @@ pack_pos 0 and 1, summed.
 that wants both heads on one image calls ``_run_blocks`` once and each
 head on its result.  The layers and heads are reached through this
 module's global names ``eval_conv_bn_relu`` and ``convops``, so a caller
-can wrap them (to time, check or record each).
+can wrap them (to time, check or record each).  Spans
+(``utils/tracing.py``): ``infer_features`` / ``infer_logits`` are the
+root ``image``, ``encrypt_input`` is ``encrypt``, each head ``head``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ..ckks.types import Ciphertext
 from ..ops import conv as convops
 from ..ops import repack as rp
 from ..ops.pipeline import LayerMaps, eval_conv_bn_relu
+from ..utils import tracing
 from .resnet import Layout
 
 HEAD_KW = 7                      # the RMFC head's taps (test.go:1591)
@@ -105,6 +108,7 @@ class _ImagenetRunner(Layout):
     def raw_wid(self, blk: int) -> int:
         return self.kp_wids[blk]
 
+    @tracing.spanned("encrypt")
     def encrypt_input(self, x: np.ndarray) -> Ciphertext:
         """x [14, 14, C0] (C0 at most block 1's full batch) → level-1 ct,
         channel b at coefficient b + max_batch·(16·i + j)."""
@@ -112,12 +116,14 @@ class _ImagenetRunner(Layout):
         return self.ctx.encrypt(self.ctx.encoder.encode_coeffs(
             self.pack(x, 0), p.scale, 1))
 
+    @tracing.spanned("image")
     def infer_features(self, x: np.ndarray, convs: list, bn_a: list,
                        bn_b: list, init_pow=6.0, mid_pow=5.0) -> np.ndarray:
         """Run the two blocks; returns decrypted feature coefficients."""
         return self.features_head(
             self._run_blocks(x, convs, bn_a, bn_b, init_pow, mid_pow))
 
+    @tracing.spanned("image")
     def infer_logits(self, x: np.ndarray, convs: list, bn_a: list,
                      bn_b: list, fc_w: np.ndarray, fc_b: np.ndarray,
                      init_pow=6.0, mid_pow=5.0) -> np.ndarray:
@@ -131,6 +137,7 @@ class _ImagenetRunner(Layout):
         mb = self.ctx.params.n // (8 * 8)
         return (HEAD_KW // 2) * 8 * mb + (HEAD_KW // 2) * mb
 
+    @tracing.spanned("head")
     def features_head(self, ct: Ciphertext) -> np.ndarray:
         """The identity-FC head on block 2's output → every decrypted
         coefficient; ``features`` reads the means out of them."""
@@ -145,6 +152,7 @@ class _ImagenetRunner(Layout):
         nm, ctr = self.norm[1], self._ctr()
         return np.asarray(cfs)[ctr: ctr + nm * self.real_batch[1]: nm]
 
+    @tracing.spanned("head")
     def logits_head(self, ct: Ciphertext, fc_w: np.ndarray,
                     fc_b: np.ndarray) -> np.ndarray:
         """The RMFC head (reduce-mean + FC as one conv with the FC matrix

@@ -19,6 +19,10 @@ it is two half-width convs (test.go:281-338).
 Widths are parameters, so the same graph runs miniaturised in tests
 (logN 10 ⇒ 16×16 inputs) and at full CIFAR scale (logN 16 ⇒ 32×32,
 real_batch (16,32,64), norm (4,8,16)) on the card.
+
+Spans (``utils/tracing.py``): a runner's ``infer`` is the root ``image``;
+``encrypt_image`` is ``encrypt`` and the FC head ``head``; the fused
+layers open their own ``layer`` spans.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ..interop import ciphertext_from_arrays, to_numpy
 from ..ops import conv as convops
 from ..ops import repack as rp
 from ..ops.pipeline import LayerMaps, eval_conv_bn_relu
+from ..utils import tracing
 from .plain import NUM_BLOCKS, ResNetWeights
 
 
@@ -172,6 +177,7 @@ class Layout:
         reference's inline loop, test.go:140-148)."""
         return self.pack(image, 0)
 
+    @tracing.spanned("encrypt")
     def encrypt_image(self, image: np.ndarray) -> Ciphertext:
         """image [raw0, raw0, C] → packed level-1 ciphertext."""
         p = self.ctx.params
@@ -242,6 +248,7 @@ class ResNetRunner(Layout):
         return (self.cfg.in_wids[blk], self.max_batch[blk], 1,
                 self.norm[blk])
 
+    @tracing.spanned("image")
     def infer(self, image: np.ndarray, w: ResNetWeights,
               timings: dict | None = None,
               ckpt_dir: str | None = None) -> np.ndarray:
@@ -361,6 +368,7 @@ class ResNetRunner(Layout):
             os.remove(ckpt_path)
         return logits
 
+    @tracing.spanned("head")
     def _fc_head(self, ct: Ciphertext, w: ResNetWeights) -> np.ndarray:
         return fc_conv(self.ctx, self.cfg, ct, w.fc_w, w.fc_b)
 
@@ -416,6 +424,7 @@ class FastResNetRunner(Layout):
         out[:, :, 0::2] = ker
         return out
 
+    @tracing.spanned("image")
     def infer(self, image: np.ndarray, w: ResNetWeights,
               timings: dict | None = None) -> np.ndarray:
         """Logits of one image.  `timings` receives the host seconds of
@@ -482,6 +491,7 @@ class FastResNetRunner(Layout):
         tm["fc"] = time.perf_counter() - t0
         return logits
 
+    @tracing.spanned("head")
     def _fc_head(self, ct: Ciphertext, w: ResNetWeights) -> np.ndarray:
         return _split_head(lambda w_, b_: self._fc_conv(ct, w_, b_), self.cfg,
                            w.fc_w, w.fc_b)
@@ -566,6 +576,7 @@ class WideFastResNetRunner(Layout):
         return (self.cfg.in_wids[min(blk, 1)], self.max_batch[blk],
                 self.steps[blk], self.norm[blk])
 
+    @tracing.spanned("image")
     def infer(self, image: np.ndarray, w: ResNetWeights,
               timings: dict | None = None) -> np.ndarray:
         """Logits of one image; `timings` as ``FastResNetRunner.infer``."""
@@ -649,6 +660,7 @@ class WideFastResNetRunner(Layout):
         tm["fc"] = time.perf_counter() - t0
         return logits
 
+    @tracing.spanned("head")
     def _fc_head(self, ct: Ciphertext, w: ResNetWeights) -> np.ndarray:
         return _split_head(lambda w_, b_: self._fc_conv(ct, w_, b_), self.cfg,
                            w.fc_w, w.fc_b)

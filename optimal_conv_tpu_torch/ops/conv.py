@@ -12,6 +12,10 @@ pack of monomial products and Galois automorphisms with level-0 key
 switches.  ``_conv_pack`` runs that as plain tensor code with the
 channels as a leading dim: each butterfly stage's key switches are one
 batched call.
+
+Spans (``utils/tracing.py``): ``conv_bn`` a call of ``eval_conv_bn`` (a
+root when no span is open: a conv request), ``encode.kernel`` a
+``prep_ker`` and ``pack`` a ``conv_then_pack``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from ..ckks.context import CkksContext
 from ..ckks.types import Ciphertext, Plaintext
 from ..core import modmath as mm
 from ..core import ntt as nttmod
+from ..utils import tracing
 
 # Conv inputs and kernel plaintexts live at level 1; one rescale brings
 # the product to level 0, where the pack's key switches run.
@@ -105,6 +110,7 @@ def encode_ker_final(ker: np.ndarray, i: int, in_wid: int, in_batch: int,
     return out
 
 
+@tracing.spanned("encode.kernel")
 def prep_ker(ctx: CkksContext, ker_in: np.ndarray, bn_a: np.ndarray,
              in_wid: int, ker_wid: int, real_ib: int, real_ob: int,
              norm: int, trans: bool, in_norm: int | None = None) -> list:
@@ -172,6 +178,7 @@ def pack_ctxts(ctx: CkksContext, ctxts: list, max_cnum: int,
     return cts[0]
 
 
+@tracing.spanned("pack")
 def conv_then_pack(ctx: CkksContext, ct_in: Ciphertext, pl_ker: list,
                    max_ob: int, norm: int, out_scale: float,
                    bias_pt: Plaintext) -> Ciphertext:
@@ -232,6 +239,7 @@ def _conv_pack(ctx: CkksContext, c0: torch.Tensor, c1: torch.Tensor,
     return mm.add_mod(cur0[0], bias, q0), cur1[0]
 
 
+@tracing.spanned("conv_bn")
 def eval_conv_bn(ctx: CkksContext, ct_in: Ciphertext, ker_in: np.ndarray,
                  bn_a: np.ndarray, bn_b: np.ndarray, in_wid: int, ker_wid: int,
                  real_ib: int, real_ob: int, norm: int, out_scale: float,

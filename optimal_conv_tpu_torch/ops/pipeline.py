@@ -28,6 +28,7 @@ import numpy as np
 
 from ..ckks.context import CkksContext
 from ..ckks.types import Ciphertext
+from ..utils import tracing
 from . import conv as convops
 from .relu import eval_relu
 
@@ -111,7 +112,10 @@ def eval_conv_bn_relu(ctx: CkksContext, btps, ct_in: Ciphertext,
     each stage's ciphertext(s); on_stage(name, value) is for timing: it
     is called at the same points and also passed down into ``ctos`` and
     ``stoc``, so a caller that synchronises in it reads each stage's
-    time."""
+    time.  While spans are recorded (``utils/tracing.py``) the call is a
+    span ``layer`` (attributes kind and log_sparse) whose stage spans
+    end at the same points: conv, ctos (its own stages ctos.*), relu,
+    repack, stoc (stoc.lt*)."""
     p = ctx.params
     n = p.n
     trans = stride = odd = inside = modify_ker = full = False
@@ -138,94 +142,97 @@ def eval_conv_bn_relu(ctx: CkksContext, btps, ct_in: Ciphertext,
     elif kind != "Conv":
         raise ValueError(f"unknown kind {kind}")
 
-    def mark(name, value):
-        if debug_hook:
-            debug_hook(name, value)
-        if on_stage:
-            on_stage(name, value)
+    # the layer is a span "layer" whose stages end at the marks
+    # (utils/tracing.py); each mark then calls the hooks
+    with tracing.stages("layer", debug_hook, on_stage, kind=kind,
+                        log_sparse=log_sparse) as mark:
+        q0 = p.q_moduli[0]
+        out_scale = float(2.0 ** (round(np.log2(q0)) - (pow_ + 8)))
+        max_batch = n // (in_wid * in_wid)
 
-    q0 = p.q_moduli[0]
-    out_scale = float(2.0 ** (round(np.log2(q0)) - (pow_ + 8)))
-    max_batch = n // (in_wid * in_wid)
-
-    if odd:
-        # move input so strided output lands on even grid (eval.go:315-332)
-        if (in_wid - ker_wid // 2) % 2 == 0:
-            offset = 0
-        else:
-            offset = max_batch * (in_wid + 1)
-        if offset:
-            ct_in = ctx.mul_monomial(ct_in, offset)
-
-    if modify_ker and not full:
-        # split even/odd out-channels into two convs (eval.go:335-390)
-        ker = np.asarray(ker_in).reshape(ker_wid * ker_wid, real_ib, real_ob)
-        k0 = ker[:, :, 0::2].ravel()
-        k1 = ker[:, :, 1::2].ravel()
-        ct1 = convops.eval_conv_bn(ctx, ct_in, k0, bn_a[0::2], bn_b[0::2],
-                                   in_wid, ker_wid, real_ib, real_ob // 2,
-                                   norm // 2, out_scale, trans)
-        ct2 = convops.eval_conv_bn(ctx, ct_in, k1, bn_a[1::2], bn_b[1::2],
-                                   in_wid, ker_wid, real_ib, real_ob // 2,
-                                   norm // 2, out_scale, trans)
-        ct2 = ctx.mul_monomial(ct2, norm // 4)
-        ct_conv = ctx.add(ct1, ct2)
-        if (in_wid - ker_wid // 2) % 2 == 0:
-            ct_conv = ctx.mul_monomial(ct_conv, -(max_batch * (in_wid + 1)))
-    elif modify_ker and full:
-        ct_conv = convops.eval_conv_bn(ctx, ct_in, ker_in, bn_a, bn_b, in_wid,
-                                       ker_wid, real_ib, real_ob, norm,
-                                       out_scale, trans)
-        if (in_wid - ker_wid // 2) % 2 == 0:
-            ct_conv = ctx.mul_monomial(ct_conv, -(max_batch * (in_wid + 1)))
-    elif inside:
-        new_kw = ker_wid * in_step - in_step + 1
-        ker = np.asarray(ker_in).reshape(ker_wid, ker_wid, real_ib, real_ob)
-        new_ker = np.zeros((new_kw, new_kw, real_ib, real_ob))
-        new_ker[::in_step, ::in_step] = ker
-        ct_conv = convops.eval_conv_bn(ctx, ct_in, new_ker.ravel(), bn_a, bn_b,
-                                       in_wid, new_kw, real_ib, real_ob, norm,
-                                       out_scale, trans)
-    else:
-        ct_conv = convops.eval_conv_bn(ctx, ct_in, ker_in, bn_a, bn_b, in_wid,
-                                       ker_wid, real_ib, real_ob, norm,
-                                       out_scale, trans)
-
-    # boost: values enter the bootstrap in [-1, 1] (eval.go:437)
-    ct_conv = ct_conv.with_scale(ct_conv.scale * 2.0 ** pow_)
-    mark("conv", ct_conv)
-
-    btp = btps[log_sparse]
-    ct_up, ct_low = btp.ctos(ct_conv, on_stage=on_stage)
-    mark("ctos", (ct_up, ct_low))
-
-    boots = [ct_up, ct_low]
-    for ul in range(2):
-        if boots[ul] is not None:
-            r = eval_relu(ctx, boots[ul], alpha)
-            boots[ul] = ctx.mul_scalar_int(r, 1 << int(pow_))
-    mark("relu", tuple(boots))
-
-    keep = [None, None]
-    for ul in range(2):
-        if boots[ul] is None:
-            continue
-        if trans:
-            keep[ul] = ext_ctxt(ctx, boots[ul], maps.r_idx if ul == 0
-                                else maps.r_idx_l)
-        elif stride:
-            m = maps.m_idx if ul == 0 else maps.m_idx_l
-            r = maps.r_idx if ul == 0 else maps.r_idx_l
-            if m is None:
-                # non-fast_pack StrConv: single-stage maps from
-                # gen_comprs_full (eval.go:513-519)
-                keep[ul] = ext_ctxt(ctx, boots[ul], r)
+        if odd:
+            # move input so strided output lands on even grid
+            # (eval.go:315-332)
+            if (in_wid - ker_wid // 2) % 2 == 0:
+                offset = 0
             else:
-                keep[ul] = ext_double_ctxt(ctx, boots[ul], m, r)
-        else:
-            keep[ul] = keep_ctxt(ctx, boots[ul], maps.ext_idx[ul])
-    mark("repack", tuple(keep))
+                offset = max_batch * (in_wid + 1)
+            if offset:
+                ct_in = ctx.mul_monomial(ct_in, offset)
 
-    out = btp.stoc(keep[0], keep[1], on_stage=on_stage)
-    mark("stoc", out)
-    return out
+        if modify_ker and not full:
+            # split even/odd out-channels into two convs (eval.go:335-390)
+            ker = np.asarray(ker_in).reshape(ker_wid * ker_wid, real_ib,
+                                             real_ob)
+            k0 = ker[:, :, 0::2].ravel()
+            k1 = ker[:, :, 1::2].ravel()
+            ct1 = convops.eval_conv_bn(ctx, ct_in, k0, bn_a[0::2], bn_b[0::2],
+                                       in_wid, ker_wid, real_ib, real_ob // 2,
+                                       norm // 2, out_scale, trans)
+            ct2 = convops.eval_conv_bn(ctx, ct_in, k1, bn_a[1::2], bn_b[1::2],
+                                       in_wid, ker_wid, real_ib, real_ob // 2,
+                                       norm // 2, out_scale, trans)
+            ct2 = ctx.mul_monomial(ct2, norm // 4)
+            ct_conv = ctx.add(ct1, ct2)
+            if (in_wid - ker_wid // 2) % 2 == 0:
+                ct_conv = ctx.mul_monomial(ct_conv,
+                                           -(max_batch * (in_wid + 1)))
+        elif modify_ker and full:
+            ct_conv = convops.eval_conv_bn(ctx, ct_in, ker_in, bn_a, bn_b,
+                                           in_wid, ker_wid, real_ib, real_ob,
+                                           norm, out_scale, trans)
+            if (in_wid - ker_wid // 2) % 2 == 0:
+                ct_conv = ctx.mul_monomial(ct_conv,
+                                           -(max_batch * (in_wid + 1)))
+        elif inside:
+            new_kw = ker_wid * in_step - in_step + 1
+            ker = np.asarray(ker_in).reshape(ker_wid, ker_wid, real_ib,
+                                             real_ob)
+            new_ker = np.zeros((new_kw, new_kw, real_ib, real_ob))
+            new_ker[::in_step, ::in_step] = ker
+            ct_conv = convops.eval_conv_bn(ctx, ct_in, new_ker.ravel(), bn_a,
+                                           bn_b, in_wid, new_kw, real_ib,
+                                           real_ob, norm, out_scale, trans)
+        else:
+            ct_conv = convops.eval_conv_bn(ctx, ct_in, ker_in, bn_a, bn_b,
+                                           in_wid, ker_wid, real_ib, real_ob,
+                                           norm, out_scale, trans)
+
+        # boost: values enter the bootstrap in [-1, 1] (eval.go:437)
+        ct_conv = ct_conv.with_scale(ct_conv.scale * 2.0 ** pow_)
+        mark("conv", ct_conv)
+
+        btp = btps[log_sparse]
+        ct_up, ct_low = btp.ctos(ct_conv, on_stage=on_stage)
+        mark("ctos", (ct_up, ct_low))
+
+        boots = [ct_up, ct_low]
+        for ul in range(2):
+            if boots[ul] is not None:
+                r = eval_relu(ctx, boots[ul], alpha)
+                boots[ul] = ctx.mul_scalar_int(r, 1 << int(pow_))
+        mark("relu", tuple(boots))
+
+        keep = [None, None]
+        for ul in range(2):
+            if boots[ul] is None:
+                continue
+            if trans:
+                keep[ul] = ext_ctxt(ctx, boots[ul], maps.r_idx if ul == 0
+                                    else maps.r_idx_l)
+            elif stride:
+                m = maps.m_idx if ul == 0 else maps.m_idx_l
+                r = maps.r_idx if ul == 0 else maps.r_idx_l
+                if m is None:
+                    # non-fast_pack StrConv: single-stage maps from
+                    # gen_comprs_full (eval.go:513-519)
+                    keep[ul] = ext_ctxt(ctx, boots[ul], r)
+                else:
+                    keep[ul] = ext_double_ctxt(ctx, boots[ul], m, r)
+            else:
+                keep[ul] = keep_ctxt(ctx, boots[ul], maps.ext_idx[ul])
+        mark("repack", tuple(keep))
+
+        out = btp.stoc(keep[0], keep[1], on_stage=on_stage)
+        mark("stoc", out)
+        return out

@@ -6,8 +6,10 @@ logN 10 on ``mini_boot_params(10, n_relu=14)`` with the geometry of
 JAX on the JAX context's keys, with equal level and scale, and meets the
 JAX test's bars against numpy conv + exact ReLU.  The JAX side of this one
 case takes minutes, so it has a file, and with it a test worker, of its
-own; the helpers are ``tests/test_torch_pipeline.py``'s.  A second port
-layer on the same bootstrapper runs under the port's ``DebugOracle``.
+own; the helpers are ``tests/test_torch_pipeline.py``'s.  The same port
+layer runs again with spans recorded: bit-equal, its stage spans those
+``on_stage`` sees.  A second port layer on the same bootstrapper runs
+under the port's ``DebugOracle``.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ from optimal_conv_tpu_torch.ops import pipeline as tpipe
 from optimal_conv_tpu_torch.ops.debug import DebugOracle
 from optimal_conv_tpu_torch.ops import repack as rp
 from optimal_conv_tpu_torch.ops.relu import relu_np
+from optimal_conv_tpu_torch.utils import tracing
 
 from .test_torch_pipeline import BOOT, IN_WID, KER, MB, POW, Pair, _same
 
@@ -41,8 +44,10 @@ def tbt(pair):
                                   **BOOT)}
 
 
-def test_conv_bn_relu_sparse_bit_exact_and_bars(pair, tbt, monkeypatch):
-    """One ResNet block-1 style layer: Conv_sparse at log_sparse 2."""
+@pytest.fixture(scope="module")
+def case(pair):
+    """One ResNet block-1 style layer, Conv_sparse at log_sparse 2: its
+    input, arguments and the JAX package's output."""
     raw = IN_WID - KER // 2
     norm, ls = 4, LS
     ib = ob = MB // norm
@@ -55,24 +60,65 @@ def test_conv_bn_relu_sparse_bit_exact_and_bars(pair, tbt, monkeypatch):
     mask = rp.gen_keep_vec_sparse(pair.n // 2, IN_WID, raw, ls)
     args = (ker.ravel(), bn_a, bn_b, 0.0, POW, IN_WID, raw, KER, ib, ob, norm,
             0, 1, 2, ls, "Conv_sparse")
-    monkeypatch.setenv("OPTCONV_DOUBLE_HOIST", "1")
-    jbt = {ls: JaxBoot(pair.j, log_sparse=ls, **BOOT)}
-    jout = jpipe.eval_conv_bn_relu(pair.j, jbt, jct, *args,
-                                   jpipe.LayerMaps(ext_idx=[mask, None]))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OPTCONV_DOUBLE_HOIST", "1")
+        jbt = {ls: JaxBoot(pair.j, log_sparse=ls, **BOOT)}
+        jout = jpipe.eval_conv_bn_relu(pair.j, jbt, jct, *args,
+                                       jpipe.LayerMaps(ext_idx=[mask, None]))
+    return dict(raw=raw, norm=norm, ob=ob, img=img, ker=ker, bn_a=bn_a,
+                bn_b=bn_b, tct=tct, mask=mask, args=args, jout=jout)
+
+
+def test_conv_bn_relu_sparse_bit_exact_and_bars(pair, tbt, case):
+    """One ResNet block-1 style layer: Conv_sparse at log_sparse 2."""
+    c = case
     seen = []
     tout = pair.run_port(lambda: tpipe.eval_conv_bn_relu(
-        pair.t, tbt, tct, *args, tpipe.LayerMaps(ext_idx=[mask, None]),
+        pair.t, tbt, c["tct"], *c["args"],
+        tpipe.LayerMaps(ext_idx=[c["mask"], None]),
         debug_hook=lambda name, _: seen.append(name)))
     assert seen == ["conv", "ctos", "relu", "repack", "stoc"]
-    _same(tout, jout)
+    _same(tout, c["jout"])
     assert tout.level == 1
 
+    raw, norm, ob = c["raw"], c["norm"], c["ob"]
     got = convops.post_process(pair.t.decrypt_decode_coeffs(tout), raw, IN_WID)
     got = got.reshape(raw, raw, MB)[:, :, ::norm][:, :, :ob]
-    want = relu_np(convops.conv2d_same_np(img, ker) * bn_a + bn_b)
+    want = relu_np(convops.conv2d_same_np(c["img"], c["ker"]) * c["bn_a"]
+                   + c["bn_b"])
     err = np.abs(got - want)
     assert err.max() < 5e-2, f"max err {err.max()}"
     assert np.mean(err < 2.5e-2) > 0.97
+
+
+def test_layer_stage_spans_under_collect(pair, tbt, case):
+    """The same layer with spans recorded (``utils/tracing.collect()``):
+    its output is bit-equal to JAX's, as with recording off; its stage
+    spans are, in order, the stages an ``on_stage`` callback sees, and
+    cover at least 99% of the ``layer`` span."""
+    seen = []
+    tracing.clear()
+    with tracing.collect():
+        tout = pair.run_port(lambda: tpipe.eval_conv_bn_relu(
+            pair.t, tbt, case["tct"], *case["args"],
+            tpipe.LayerMaps(ext_idx=[case["mask"], None]),
+            on_stage=lambda name, _: seen.append(name)))
+    _same(tout, case["jout"])
+    recs = tracing.records()
+    tracing.clear()
+    layer = recs[-1]
+    assert layer["name"] == "layer" and layer["parent"] == 0
+    assert layer["attrs"] == {"kind": "Conv_sparse", "log_sparse": LS}
+    top = [r for r in recs if r["parent"] == layer["id"]]
+    split = {r["id"] for r in top if r["name"] in ("ctos", "stoc")}
+    stages = [r["name"] for r in recs
+              if r["parent"] == layer["id"] or r["parent"] in split]
+    assert stages == seen
+    assert [r["name"] for r in top] == ["conv", "ctos", "relu", "repack",
+                                        "stoc"]
+    covered = sum(r["t1"] - r["t0"] for r in top)
+    assert covered >= 0.99 * (layer["t1"] - layer["t0"])
+    assert sum(r["eval"][0] for r in recs) > 0
 
 
 def test_debug_oracle_on_a_port_layer(pair, tbt):

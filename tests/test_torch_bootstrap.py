@@ -27,6 +27,7 @@ from optimal_conv_tpu_torch.ckks import bootstrap as tboot
 from optimal_conv_tpu_torch.ckks.context import CkksContext
 from optimal_conv_tpu_torch.ckks.params import mini_boot_params
 from optimal_conv_tpu_torch.ops.repack import reverse_bits
+from optimal_conv_tpu_torch.utils import tracing
 
 CPU = torch.device("cpu")
 LOG_N = 9
@@ -268,8 +269,16 @@ def test_sparse_bootstrap_bit_exact_and_roundtrip(pair, monkeypatch):
 def test_family_builds_lazily_and_bounds_residency(pair):
     fam = tboot.BootstrapperFamily(pair.t, BOOT)
     assert 1 not in fam
-    b1 = fam[1]
-    assert fam[1] is b1 and fam.build_seconds[1] > 0
+    before = tracing.counters()
+    with tracing.collect():
+        b1 = fam[1]
+    assert fam[1] is b1
+    after = tracing.counters()
+    # one build, counted with its host seconds and recorded as a span
+    assert after["boot.builds"] - before.get("boot.builds", 0) == 1
+    assert after["boot.build_s"] - before.get("boot.build_s", 0.0) > 0
+    build = [r for r in tracing.records() if r["name"] == "boot.build"][-1]
+    assert build["attrs"] == {"log_sparse": 1} and build["parent"] == 0
     assert b1.plaintext_bytes() == sum(
         pts.numel() * 8 for lt in b1.ctos_lt + b1.stoc_lt
         for _, _, pts, _ in lt.stacked) + 2 * b1.fold_a_pt.poly.numel() * 8

@@ -21,6 +21,7 @@ from optimal_conv_tpu_torch.core import d1_kernel, mont_kernel, ntt_kernel
 from optimal_conv_tpu_torch.core import mxu_kernel, mxu_ntt, threefry
 from optimal_conv_tpu_torch.core.ntt import (NttContext, _ntt_fwd, _ntt_inv,
                                              galois_perm_ntt, rot_to_galois)
+from optimal_conv_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -125,6 +126,35 @@ def test_mont_mul2_kernel_equals_plain(dev, case):
     assert mont_kernel.STATS.launches == 1
     assert mont_kernel.STATS.plain_calls == 0
     assert torch.equal(got, mm.mont_mul2_plain(a, b, c, q, qinv))
+
+
+def test_span_holds_its_kernel_on_the_profilers_clock(dev):
+    """Under torch.profiler with the CUDA activity alone the recorder is
+    on, and the device interval of a K1 launch lies inside the span that
+    holds the launch and a synchronise, both on ``time.time_ns``: the
+    program's spans share the device trace's clock."""
+    from torch.profiler import ProfilerActivity, profile
+    (a, b, q, qinv), _ = _mont_case("same", dev)
+    mont_kernel.mont_mul_cuda(a, b, q, qinv)      # the build and the plan
+    torch.cuda.synchronize(dev)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        assert tracing.recording()
+        with tracing.span("k1"):
+            mont_kernel.mont_mul_cuda(a, b, q, qinv)
+            torch.cuda.synchronize(dev)
+    assert not tracing.recording()
+    rec = [r for r in tracing.records() if r["name"] == "k1"][-1]
+    tracing.clear()
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [(ev.start_ns(), ev.duration_ns())
+           for ev in prof.profiler.kineto_results.events()
+           if ev.device_type() == cuda and "mont_mul" in ev.name()]
+    assert len(evs) == 1
+    start, dur = evs[0]
+    assert rec["t0"] <= start and start + dur <= rec["t1"]
+    calls, ns, rows = rec["kernels"]["mont_mul"]
+    assert calls == 1 and rows == 6 and 0 < ns < rec["t1"] - rec["t0"]
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,8 @@
 * The evaluator on compressed keys, and on a cache too small for its
   keys, equals the same context with every key stored whole, residue for
   residue.
+* The cache's counters (hits, keys made, evictions, memos dropped, d1
+  regenerated) against a hand count.
 
 The JAX archives of compressed keys, both ways, are in
 ``tests/test_torch_interop.py``.
@@ -35,6 +37,7 @@ from optimal_conv_tpu_torch.ckks.params import (DeviceTables, mini_boot_params,
                                                 tiny_params)
 from optimal_conv_tpu_torch.core import d1_kernel, threefry
 from optimal_conv_tpu_torch.core import ntt as nttmod
+from optimal_conv_tpu_torch.utils import tracing
 
 CPU = torch.device("cpu")
 torch.set_num_threads(1)
@@ -391,3 +394,36 @@ def test_evaluator_on_compressed_keys_is_bit_equal(whole, variant):
         assert cache.d0_bytes * 2 == sum(
             k.d0.numel() * 16 for t, k in ref.switching_keys.items()
             if t in cache.d)
+
+
+def test_key_cache_counters_match_a_hand_count():
+    """The cache's counters (``utils/tracing.py``) on a compressed context
+    whose resident budget holds two keys and whose memo budget holds
+    none: rotations by 1, 2, 1, 3 make three keys, hit once, regenerate
+    one d1 (key 1's, dropped when key 2 came), drop three memos and evict
+    one key (the MRU policy takes key 1, the second most recent); the
+    gauges follow the cache's bytes."""
+    p = tiny_params(log_n=8, levels=3)
+    ctx = CkksContext(p, CPU, seed=KS_SEED, compress_keys=True,
+                      key_expand_gib=0.0)
+    a = ctx.encrypt(ctx.encoder.encode_slots(
+        np.random.default_rng(4).uniform(-1, 1, p.slots), p.scale,
+        p.max_level))
+    cache = ctx._swk_cache
+    names = ("keys.made", "keys.hit", "keys.d1_drawn", "keys.memo_dropped",
+             "keys.evicted")
+    before = tracing.counters()
+    ctx.rotate(a, 1)
+    cache.max_bytes = 2 * cache.d0_bytes
+    for k in (2, 1, 3):
+        ctx.rotate(a, k)
+    after = tracing.counters()
+    moved = {n: after.get(n, 0) - before.get(n, 0) for n in names}
+    assert moved == {"keys.made": 3, "keys.hit": 1, "keys.d1_drawn": 1,
+                     "keys.memo_dropped": 3, "keys.evicted": 1}
+    assert [t[1] for t in cache.d] == [nttmod.rot_to_galois(k, p.log_n)
+                                       for k in (2, 3)]
+    assert (after["keys.d0_bytes"] - before["keys.d0_bytes"]
+            == cache.d0_bytes)
+    assert (after["keys.d1_bytes"] - before["keys.d1_bytes"]
+            == cache.d1_bytes)
