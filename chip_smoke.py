@@ -170,7 +170,11 @@ residue equal), and a tp-4 rank's rows of the level-27 key drawn alone
 matrix NTT (``check_mxu``) against its plain version and K2/K3 at logN 16
 (each byte width, [2,12,N], [6,33,N], a strided view), 10 and 12, timed
 beside K2/K3 as µs a row against its int8 bound (SMs × 8192 operations a
-clock at the maximum SM clock).  A path that makes keys must launch d1_regen (each
+clock at the maximum SM clock); the basis extension (``check_rns``) against
+its plain chain at the ModUp of levels 27, 15, 5 and 0, a [2, L, N] stack,
+P → Q, ``mod_raise`` and a tp-4 rank's rows, timed at [6,33,N] and P → Q
+[5 → 24, N] beside its bound (its modular products at K1's slots) and
+the plain chain's time.  A path that makes keys must launch d1_regen (each
 key's uniform half is drawn by it); a warm run on made keys need not.
 After the
 paths one warm conv at 16²×256 is split into host-side kernel encoding
@@ -206,8 +210,8 @@ from optimal_conv_tpu_torch.ckks.context import GIB, CkksContext
 from optimal_conv_tpu_torch.ckks.params import boot_params
 from optimal_conv_tpu_torch.ckks.types import Ciphertext
 from optimal_conv_tpu_torch.core import (cuda_lib, d1_kernel, mont_kernel,
-                                         mxu_kernel, mxu_ntt, ntt_kernel,
-                                         threefry)
+                                         mxu_kernel, mxu_ntt, ntt_kernel, rns,
+                                         rns_kernel, threefry)
 from optimal_conv_tpu_torch.core import modmath as mm
 from optimal_conv_tpu_torch.core.ntt import (NttContext, _ntt_fwd, _ntt_inv,
                                              galois_perm_ntt, ntt_cross_plain,
@@ -238,11 +242,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "ref_conv_3_0_1.json")
 STATS = [mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV,
          d1_kernel.STATS, ntt_kernel.STATS_CROSS, mxu_kernel.STATS_FWD,
-         mxu_kernel.STATS_INV]
-MAIN = STATS[:4]               # K1, K2, K3, d1_regen: every path but sp's
+         mxu_kernel.STATS_INV, rns_kernel.STATS]
+# K1, K2, K3, d1_regen and the basis extension: every path but sp's
+MAIN = STATS[:4] + STATS[7:]
 K123 = STATS[:3]
-SP = STATS[:5]                 # the sp axis's: MAIN and the cross stage
-MXU = STATS[5:]                # the matrix NTT's, forward and inverse
+SP = MAIN + [ntt_kernel.STATS_CROSS]   # the sp axis's: MAIN and the cross stage
+MXU = STATS[5:7]               # the matrix NTT's, forward and inverse
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT8_OPS_PER_SM_CLOCK = 8192   # dense int8 tensor-core rate (wgmma); data sheet
 INT32_LANES_PER_SM = 64        # per pipe (ALU, FMA); Hopper white paper
@@ -932,6 +937,98 @@ def check_mxu(dev, p, rng, card) -> dict:
     del ctx, bfly, tabs
     torch.cuda.empty_cache()
     return out
+
+
+def _raised(mods, lead, n, q0, rng, dev) -> torch.Tensor:
+    """Residues [*lead, L, n] (0 and q-1 in every row) whose last quarter
+    of columns is a polynomial raised from q0: one integer in
+    (-q0/2, q0/2) a column, where the extension's float32 count sits
+    within a rounding of an integer."""
+    x = residues(mods, lead, n, rng, dev)
+    small = torch.from_numpy(rng.integers(-(q0 // 2), q0 // 2,
+                                          size=tuple(lead) + (n // 4,))).to(dev)
+    for j, q in enumerate(mods):
+        x[..., j, n - n // 4:] = torch.remainder(small, q)
+    return x
+
+
+def check_rns(dev, p, rng, card) -> dict:
+    """The basis extension kernel against its plain chain on the card: the
+    ModUp of every digit at levels 27, 15, 5 and 0, a [2, L, N] stack, the
+    mod-down's P -> Q at levels 23 and 0, ``mod_raise``'s (0,) -> all and
+    a tp-4 rank's destination rows; each one launch, no plain call, equal
+    residue for residue.  Then its time at [6,33,N] and at P -> Q
+    [5 -> 24, N] beside its bound and the plain chain's time."""
+    n = p.n
+    mods = p.moduli
+    pl4 = LimbPlacement(p, 4)
+
+    def digits(level, dst=None, lead=()):
+        dst = p.qp_idx(level) if dst is None else dst
+        ext = rns.DigitExtender(p.digits(level), dst, mods, dev)
+        x = _raised([mods[i] for i in p.q_idx(level)], lead, n, p.q_moduli[0],
+                     rng, dev)
+        return (f"ModUp level {level} [{len(p.digits(level))},{len(dst)},N]"
+                f"{' on [2, L, N]' if lead else ''}", ext, x, True)
+
+    def basis(what, src, dst):
+        ext = rns.BasisExtender([mods[i] for i in src], [mods[i] for i in dst],
+                                dev)
+        x = _raised([mods[i] for i in src], (), n, p.q_moduli[0], rng, dev)
+        return f"{what} [{len(src)} -> {len(dst)}, N]", ext, x, False
+
+    cases = [digits(27), digits(15), digits(5), digits(0),
+             digits(27, lead=(2,)),
+             digits(27, pl4.q_rows(27, 1) + pl4.p_rows(1)),
+             basis("P -> Q level 23", p.p_idx(), p.q_idx(23)),
+             basis("P -> Q level 0", p.p_idx(), p.q_idx(0)),
+             basis("mod_raise", (0,), p.q_idx(p.max_level))]
+    err, rows = 0.0, []
+    for k, (what, ext, x, digit_axis) in enumerate(cases):
+        run = ext.extend_digits if digit_axis else ext.extend
+        plain = ext.extend_digits_plain if digit_axis else ext.extend_plain
+        before = rns_kernel.STATS.launches, rns_kernel.STATS.plain_calls
+        got = run(x)
+        check((rns_kernel.STATS.launches, rns_kernel.STATS.plain_calls)
+              == (before[0] + 1, before[1]),
+              f"rns_extend {what}: not one launch, or a plain call")
+        want = plain(x)
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"rns_extend {what} differs from plain")
+        err = max(err, max_err(got, want))
+        if k not in (0, 6):          # timed: [6,33,N] and P -> Q [5 -> 24, N]
+            continue
+        ms = cuda_ms(lambda: run(x), dev, iters=50)
+        plain_ms = cuda_ms(lambda: plain(x), dev, iters=5, warmup=1)
+        tab = ext._cuda[dev]
+        alpha, beta, r = tab.alpha, tab.beta, tab.r
+        src_rows = x.shape[-2]
+        # y_j for each digit's limbs, then alpha products a destination row
+        products = n * beta * alpha * (1 + r)
+        n_bytes = 8 * (n * (src_rows + beta * r) + tab.words.numel())
+        bnd = card.bound(n_bytes, products * card.slots["mul"])
+        rows.append(dict(shape=what, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         modular_products=products, **bnd))
+        print(f"rns_extend {what}: {ms:.4f} ms, plain chain {plain_ms:.4f} ms, "
+              f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (bytes "
+              f"{bnd['bytes_ms']:.4f}, int32 {bnd['int32_ms']:.4f} at "
+              f"{card.slots['mul']} slots a modular product, {products} "
+              f"products); {ms / bnd['bound_ms']:.2f}x the bound")
+    print(f"rns_extend: {len(cases)} shapes equal to the plain chain, "
+          f"max_abs_err {err}")
+    check(rows[0]["ms"] < 2.0 * rows[0]["bound_ms"],
+          f"rns_extend at {rows[0]['shape']}: {rows[0]['ms']:.4f} ms is over "
+          f"twice its bound {rows[0]['bound_ms']:.4f} ms")
+    # the wrapper's host time on 1024 columns, where the device work is
+    # far shorter than the enqueue
+    small = cases[3][2][..., :1024].contiguous()
+    host_us = mont_bench.host_us_per_call(
+        lambda: cases[3][1].extend_digits(small), dev)
+    print(f"rns_extend wrapper host time at [1,6,1024]: {host_us:.2f} us per "
+          "call")
+    # no PyTorch call computes an RNS basis extension
+    return dict(max_abs_err=err, wrapper_host_us=host_us, shapes=rows,
+                **rows[0])
 
 
 def main_path(dev, card):
@@ -3172,6 +3269,7 @@ def main() -> int:
     d1 = check_d1(dev, p, rates)
     cross = check_cross(dev, p, rng, rates, k23)
     mxu = check_mxu(dev, p, rng, rates)
+    ext = check_rns(dev, p, rng, rates)
 
     for s in STATS:
         s.reset()
@@ -3256,7 +3354,12 @@ def main() -> int:
                   note=mxu_note, **mxu["mxu_fwd"]),
              dict(name="mxu_inv", route="cuda", source=src + "mxu_ntt.cu",
                   replaces="optimal_conv_tpu/core/mxu_ntt.py:334",
-                  note=mxu_note, **mxu["mxu_inv"])]
+                  note=mxu_note, **mxu["mxu_inv"]),
+             dict(name="rns_extend", route="cuda", source=src + "rns_extend.cu",
+                  replaces=None,
+                  note="new, no TPU kernel; replaces XLA's fusion of "
+                  "optimal_conv_tpu/core/rns.py (BasisExtender.extend, "
+                  "DigitExtender.extend_digits)", **ext)]
     for row in rows:
         name = row["name"]
         row["launches"] = sum(c["launches"][name] for c in paths.values())

@@ -133,6 +133,9 @@ def _bind(dll: ctypes.CDLL) -> ctypes.CDLL:
     # stream
     dll.optconv_mxu_ntt.argtypes = [p] * 13 + [i64] * 4 + [i32] * 3 + [p]
     dll.optconv_mxu_ntt.restype = i32
+    # out, in, the constant table, the launch description, stream
+    dll.optconv_rns_extend.argtypes = [p] * 5
+    dll.optconv_rns_extend.restype = i32
     return dll
 
 

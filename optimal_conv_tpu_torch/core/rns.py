@@ -17,6 +17,12 @@ difference decides v wherever the exact sum lies within a float32
 rounding of an integer, which is every coefficient of a polynomial just
 raised from q0 to the full chain (``bootstrap.mod_raise``): its integer
 is tiny beside the digit's product of primes.
+
+``BasisExtender.extend`` and ``DigitExtender.extend_digits`` dispatch on
+the tensor's device, as ``modmath.mont_mul`` does: a CPU tensor runs the
+plain chain below (``extend_plain``, ``extend_digits_plain``), a CUDA
+tensor the hand-written kernel of ``csrc/rns_extend.cu``
+(``rns_kernel.extend_cuda``: one launch, the same residues) or raises.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from . import modmath as mm
+from . import rns_kernel
 
 
 def _f32_count(y: torch.Tensor, inv_src) -> torch.Tensor:
@@ -71,10 +78,20 @@ class BasisExtender:
             [[v * big_q % r for v in range(k + 1)] for r in self.dst],
             dtype=torch.int64, device=device)                          # [R, K+1]
         self.inv_src = [float(np.float32(1.0 / q)) for q in self.src]
+        # the kernel's description (rns_kernel.pack) and its tables by device
+        self.spec = ((tuple(range(k)),), (tuple(self.src),), tuple(self.dst))
+        self._cuda: dict = {}
 
     def extend(self, x: torch.Tensor) -> torch.Tensor:
         """x: [..., K, N] coeff-domain residues mod src → [..., R, N]
         residues of (the same integer + u·Q_src) mod dst."""
+        if x.device.type == "cpu":
+            return self.extend_plain(x)
+        return rns_kernel.extend_cuda(self, x, digit_axis=False)
+
+    def extend_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """``extend`` as a chain of PyTorch operations, on any device."""
+        rns_kernel.STATS.plain_calls += 1
         k = len(self.src)
         y = mm.mont_mul(x, self.qhat_inv_mont, self.sq, self.sqinv)
         v = _f32_count(y, self.inv_src).clamp_(0, k)             # [..., N]
@@ -140,9 +157,22 @@ class DigitExtender:
         self.inv_src = torch.from_numpy(inv_src.astype(np.float64)).to(device)  # [beta, alpha]
         self.dq, self.dqinv = (x[None] for x in
                                mm.limb_tables(dst_mods, device)[:2])  # [1, R, 1]
+        # the kernel's description (rns_kernel.pack) and its tables by device
+        self.spec = (tuple(tuple(d) for d in digits),
+                     tuple(tuple(int(moduli[i]) for i in d) for d in digits),
+                     tuple(dst_mods))
+        self._cuda: dict = {}
 
     def extend_digits(self, c: torch.Tensor) -> torch.Tensor:
         """c: [..., L, N] coeff-domain residues → [..., beta, R, N]."""
+        if c.device.type == "cpu":
+            return self.extend_digits_plain(c)
+        return rns_kernel.extend_cuda(self, c, digit_axis=True)
+
+    def extend_digits_plain(self, c: torch.Tensor) -> torch.Tensor:
+        """``extend_digits`` as a chain of PyTorch operations, on any
+        device."""
+        rns_kernel.STATS.plain_calls += 1
         x = c[..., self.gather, :]                         # [..., beta, alpha, N]
         y = mm.mont_mul(x, self.qhat_inv_mont, self.sq, self.sqinv)
         v = _f32_count(y, [self.inv_src[:, j:j + 1] for j in range(self.alpha)]

@@ -18,7 +18,8 @@ from optimal_conv_tpu_torch.ckks.context import CkksContext, SwitchingKey
 from optimal_conv_tpu_torch.ckks.params import boot_params, mini_boot_params
 from optimal_conv_tpu_torch.core import modmath as mm
 from optimal_conv_tpu_torch.core import d1_kernel, mont_kernel, ntt_kernel
-from optimal_conv_tpu_torch.core import mxu_kernel, mxu_ntt, threefry
+from optimal_conv_tpu_torch.core import mxu_kernel, mxu_ntt, rns, rns_kernel
+from optimal_conv_tpu_torch.core import threefry
 from optimal_conv_tpu_torch.core.ntt import (NttContext, _ntt_fwd, _ntt_inv,
                                              galois_perm_ntt, rot_to_galois)
 from optimal_conv_tpu_torch.utils import tracing
@@ -477,6 +478,92 @@ def test_mxu_route_auto_on_card(dev):
                     == ([1, 1] if want == "mxu" else [0, 2]))
 
 
+RNS_CASES = ["digits27", "digits15", "digits5", "digits0", "stack",
+             "p_to_q27", "p_to_q0", "mod_raise", "rank_rows"]
+
+
+def _rns_case(case, dev):
+    """(extender, input, whether the output has a digit axis) of one call
+    pattern of the basis extension at logN 16: the ModUp of each level's
+    digits, a [2, L, N] stack, the mod-down's P → Q, ``mod_raise``'s
+    (0,) → all and a tp-4 rank's destination rows."""
+    from optimal_conv_tpu_torch.parallel.limbs import LimbPlacement
+
+    p = boot_params(16)
+    rng = np.random.default_rng(17)
+    if case.startswith("digits") or case in ("stack", "rank_rows"):
+        level = int(case[6:]) if case.startswith("digits") else 27
+        dst = p.qp_idx(level)
+        if case == "rank_rows":
+            pl = LimbPlacement(p, 4)
+            dst = pl.q_rows(level, 1) + pl.p_rows(1)
+        ext = rns.DigitExtender(p.digits(level), dst, p.moduli, dev)
+        lead = (2,) if case == "stack" else ()
+        mods = [p.moduli[i] for i in p.q_idx(level)]
+        return ext, _raised(mods, lead, rng, dev), True
+    if case == "mod_raise":
+        src, dst = (0,), p.q_idx(p.max_level)
+    else:
+        src, dst = p.p_idx(), p.q_idx(int(case[6:]))
+    ext = rns.BasisExtender([p.moduli[i] for i in src],
+                            [p.moduli[i] for i in dst], dev)
+    mods = [p.moduli[i] for i in src]
+    return ext, _raised(mods, (), rng, dev), False
+
+
+def _raised(mods, lead, rng, dev):
+    """[*lead, L, N] residues (0 and q-1 in every row) whose last quarter
+    of columns is a polynomial raised from q0: one integer in
+    (-q0/2, q0/2) a column, where the float32 count sits within a
+    rounding of an integer."""
+    n = 1 << 16
+    x = _residues(mods, lead + (len(mods), n), rng, dev)
+    q0 = boot_params(16).q_moduli[0]
+    small = torch.from_numpy(rng.integers(-(q0 // 2), q0 // 2,
+                                          size=lead + (n // 4,))).to(dev)
+    for j, q in enumerate(mods):
+        x[..., j, n - n // 4:] = torch.remainder(small, q)
+    return x
+
+
+@pytest.mark.parametrize("case", RNS_CASES)
+def test_rns_extend_kernel_equals_plain(dev, case):
+    """One launch of the basis extension kernel, equal to the plain chain
+    (``extend_plain`` / ``extend_digits_plain``) residue for residue,
+    max_abs_err 0, with no plain call."""
+    ext, x, digit_axis = _rns_case(case, dev)
+    call = ext.extend_digits if digit_axis else ext.extend
+    plain = ext.extend_digits_plain if digit_axis else ext.extend_plain
+    before = rns_kernel.STATS.launches, rns_kernel.STATS.plain_calls
+    got = call(x)
+    assert (rns_kernel.STATS.launches, rns_kernel.STATS.plain_calls) == (
+        before[0] + 1, before[1])
+    want = plain(x)
+    assert got.shape == want.shape and got.is_cuda
+    assert float((got - want).abs().max()) == 0.0
+    assert torch.equal(got, want)
+
+
+def test_rns_extend_kernel_rejects_bad_input(dev):
+    """A CPU tensor, another dtype, a non-unit stride along N and a digit
+    of more than MAX_ALPHA limbs are refused, never run another way."""
+    p = boot_params(16)
+    rng = np.random.default_rng(5)
+    ext = rns.DigitExtender(p.digits(5), p.qp_idx(5), p.moduli, dev)
+    mods = [p.moduli[i] for i in p.q_idx(5)]
+    x = _residues(mods, (len(mods), p.n), rng, dev)
+    with pytest.raises(ValueError):
+        rns_kernel.extend_cuda(ext, x.cpu(), True)
+    with pytest.raises(TypeError):
+        ext.extend_digits(x.to(torch.int32))
+    wide = _residues(mods, (len(mods), 2 * p.n), rng, dev)
+    with pytest.raises(ValueError):
+        ext.extend_digits(wide[..., ::2])
+    nine = rns.BasisExtender(p.moduli[:9], p.moduli[9:12], dev)
+    with pytest.raises(ValueError):
+        nine.extend(_residues(p.moduli[:9], (9, p.n), rng, dev))
+
+
 def test_kernels_reject_bad_input(dev):
     mods = boot_params(10).moduli[:2]
     q, qinv, _, _ = mm.limb_tables(mods, dev)
@@ -528,7 +615,8 @@ def test_mul_ct_on_card_equals_cpu(dev, contexts):
     cpu, card, (a, b) = contexts
     want = cpu.rescale(cpu.mul_ct(a, b))
     _share_keys(cpu, card)
-    stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV)
+    stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV,
+             rns_kernel.STATS)
     before = [(s.launches, s.plain_calls) for s in stats]
     got = card.rescale(card.mul_ct(_to_card(a, dev), _to_card(b, dev)))
     for s, (launches, plain) in zip(stats, before):
