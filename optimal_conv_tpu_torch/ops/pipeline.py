@@ -113,9 +113,12 @@ def eval_conv_bn_relu(ctx: CkksContext, btps, ct_in: Ciphertext,
     is called at the same points and also passed down into ``ctos`` and
     ``stoc``, so a caller that synchronises in it reads each stage's
     time.  While spans are recorded (``utils/tracing.py``) the call is a
-    span ``layer`` (attributes kind and log_sparse) whose stage spans
-    end at the same points: conv, ctos (its own stages ctos.*), relu,
-    repack, stoc (stoc.lt*)."""
+    span ``layer`` (attributes kind, log_sparse, step and halves: the
+    CtoS outputs that go on, 2 at log_sparse 0, else 1) whose stage
+    spans end at the same points: conv, ctos (its own stages ctos.*),
+    relu, repack, stoc (stoc.lt*).  Inside the relu and repack stages
+    each half's work is a span ``relu.half`` / ``repack.half``
+    (attribute ul: 0 the upper half, 1 the lower)."""
     p = ctx.params
     n = p.n
     trans = stride = odd = inside = modify_ker = full = False
@@ -145,7 +148,8 @@ def eval_conv_bn_relu(ctx: CkksContext, btps, ct_in: Ciphertext,
     # the layer is a span "layer" whose stages end at the marks
     # (utils/tracing.py); each mark then calls the hooks
     with tracing.stages("layer", debug_hook, on_stage, kind=kind,
-                        log_sparse=log_sparse) as mark:
+                        log_sparse=log_sparse, step=step,
+                        halves=1 if log_sparse else 2) as mark:
         q0 = p.q_moduli[0]
         out_scale = float(2.0 ** (round(np.log2(q0)) - (pow_ + 8)))
         max_batch = n // (in_wid * in_wid)
@@ -209,28 +213,30 @@ def eval_conv_bn_relu(ctx: CkksContext, btps, ct_in: Ciphertext,
         boots = [ct_up, ct_low]
         for ul in range(2):
             if boots[ul] is not None:
-                r = eval_relu(ctx, boots[ul], alpha)
-                boots[ul] = ctx.mul_scalar_int(r, 1 << int(pow_))
+                with tracing.span("relu.half", ul=ul):
+                    r = eval_relu(ctx, boots[ul], alpha)
+                    boots[ul] = ctx.mul_scalar_int(r, 1 << int(pow_))
         mark("relu", tuple(boots))
 
         keep = [None, None]
         for ul in range(2):
             if boots[ul] is None:
                 continue
-            if trans:
-                keep[ul] = ext_ctxt(ctx, boots[ul], maps.r_idx if ul == 0
-                                    else maps.r_idx_l)
-            elif stride:
-                m = maps.m_idx if ul == 0 else maps.m_idx_l
-                r = maps.r_idx if ul == 0 else maps.r_idx_l
-                if m is None:
-                    # non-fast_pack StrConv: single-stage maps from
-                    # gen_comprs_full (eval.go:513-519)
-                    keep[ul] = ext_ctxt(ctx, boots[ul], r)
+            with tracing.span("repack.half", ul=ul):
+                if trans:
+                    keep[ul] = ext_ctxt(ctx, boots[ul], maps.r_idx if ul == 0
+                                        else maps.r_idx_l)
+                elif stride:
+                    m = maps.m_idx if ul == 0 else maps.m_idx_l
+                    r = maps.r_idx if ul == 0 else maps.r_idx_l
+                    if m is None:
+                        # non-fast_pack StrConv: single-stage maps from
+                        # gen_comprs_full (eval.go:513-519)
+                        keep[ul] = ext_ctxt(ctx, boots[ul], r)
+                    else:
+                        keep[ul] = ext_double_ctxt(ctx, boots[ul], m, r)
                 else:
-                    keep[ul] = ext_double_ctxt(ctx, boots[ul], m, r)
-            else:
-                keep[ul] = keep_ctxt(ctx, boots[ul], maps.ext_idx[ul])
+                    keep[ul] = keep_ctxt(ctx, boots[ul], maps.ext_idx[ul])
         mark("repack", tuple(keep))
 
         out = btp.stoc(keep[0], keep[1], on_stage=on_stage)

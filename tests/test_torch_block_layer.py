@@ -108,7 +108,8 @@ def test_layer_stage_spans_under_collect(pair, tbt, case):
     tracing.clear()
     layer = recs[-1]
     assert layer["name"] == "layer" and layer["parent"] == 0
-    assert layer["attrs"] == {"kind": "Conv_sparse", "log_sparse": LS}
+    assert layer["attrs"] == {"kind": "Conv_sparse", "log_sparse": LS,
+                              "step": 1, "halves": 1}
     top = [r for r in recs if r["parent"] == layer["id"]]
     split = {r["id"] for r in top if r["name"] in ("ctos", "stoc")}
     stages = [r["name"] for r in recs

@@ -306,3 +306,60 @@ def test_evaluator_results_equal_on_and_off():
     assert torch.equal(outs[0].c0, outs[1].c0)
     assert torch.equal(outs[0].c1, outs[1].c1)
     tracing.clear()
+
+
+class _Halves:
+    """Stands in for a bootstrapper: CtoS hands on a fresh encryption at
+    the top level, as two halves at log_sparse 0 and as one above; StoC
+    one at level 1."""
+
+    def __init__(self, ctx, log_sparse):
+        self.ctx, self.ls = ctx, log_sparse
+
+    def _fresh(self, level):
+        p = self.ctx.params
+        return self.ctx.encrypt(self.ctx.encoder.encode_slots(
+            np.full(p.slots, 0.5), p.scale, level))
+
+    def ctos(self, ct, on_stage=None):
+        top = self.ctx.params.max_level
+        return self._fresh(top), self._fresh(top) if self.ls == 0 else None
+
+    def stoc(self, up, low, on_stage=None):
+        return self._fresh(1)
+
+
+@pytest.mark.parametrize("log_sparse,halves", [(0, 2), (2, 1)])
+def test_fused_layer_spans_each_half(monkeypatch, log_sparse, halves):
+    """A fused layer's span carries its step and the CtoS halves that go
+    on; inside its relu and repack stages each half is a span
+    ``relu.half`` / ``repack.half`` with its ``ul``; the stage spans are
+    the five they were.  The conv and the ReLU are stubbed: the spans
+    are the point, not the numbers."""
+    from optimal_conv_tpu_torch.ops import pipeline
+    monkeypatch.setattr(pipeline.convops, "eval_conv_bn",
+                        lambda ctx, ct, *a, **kw: ct)
+    monkeypatch.setattr(pipeline, "eval_relu", lambda ctx, ct, alpha: ct)
+    p = tiny_params(log_n=8, levels=3)
+    ctx = CkksContext(p, CPU, seed=4)
+    ct = ctx.encrypt(ctx.encoder.encode_coeffs(np.zeros(p.n), p.scale, 1))
+    masks = [np.ones(p.slots), np.zeros(p.slots)]
+    tracing.clear()
+    with tracing.collect():
+        pipeline.eval_conv_bn_relu(
+            ctx, {log_sparse: _Halves(ctx, log_sparse)}, ct, np.zeros(9),
+            np.ones(1), np.zeros(1), 0.0, 4.0, 8, 7, 3, 1, 1, 1, 0, 2, 2,
+            log_sparse, "Conv_inside", pipeline.LayerMaps(ext_idx=masks))
+    recs = tracing.records()
+    tracing.clear()
+    layer = recs[-1]
+    assert layer["name"] == "layer"
+    assert layer["attrs"] == {"kind": "Conv_inside", "log_sparse": log_sparse,
+                              "step": 2, "halves": halves}
+    top = {r["name"]: r for r in recs if r["parent"] == layer["id"]}
+    assert list(top) == ["conv", "ctos", "relu", "repack", "stoc"]
+    for stage in ("relu", "repack"):
+        kids = [r for r in recs if r["parent"] == top[stage]["id"]]
+        assert [r["name"] for r in kids] == [f"{stage}.half"] * halves
+        assert [r["attrs"]["ul"] for r in kids] == list(range(halves))
+        assert all(r["eval"][0] > 0 for r in kids)
