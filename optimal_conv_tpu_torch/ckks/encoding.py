@@ -20,8 +20,10 @@ log_slots < log_n − 1 the 2n coefficients sit at stride N/(2n) in the
 big ring and the slot values repeat.
 
 Each encode is a span ``encode`` (``utils/tracing.py``); the counter
-``encode.bytes_up`` counts the residue bytes uploaded from pageable host
-memory to a card.
+``encode.bytes_up`` counts the bytes uploaded from pageable host memory
+to a card: the residues of each encode, and the float64 weights and BN
+scales that ``ops/conv.prep_ker`` uploads to encode a conv's kernel
+plaintexts on the card (``encode_int_coeffs``).
 """
 
 from __future__ import annotations
@@ -98,6 +100,21 @@ class Encoder:
         v[: len(values)] = np.asarray(values, dtype=np.float64)
         return self._finalize(np.round(v * scale), level, scale, mont)
 
+    def encode_int_coeffs(self, ints: torch.Tensor, pos: torch.Tensor,
+                          level: int, out: torch.Tensor) -> None:
+        """Rounded coefficients already on the device → plaintext polys,
+        written into `out` [c, l, N] (the rows of `level`): polynomial i
+        has the int64 coefficients ints[i] (|c| < 2^62) at the positions
+        `pos` and zeros elsewhere.  NTT domain, Montgomery form; the
+        residues equal those ``encode_coeffs`` makes of the same
+        integers (``torch.remainder`` by a positive modulus is
+        ``np.mod``)."""
+        idx = self.rows(level, False)
+        q = self.tables.ntt.tabs(idx)[0]
+        out.zero_()
+        out[:, :, pos] = torch.remainder(ints[:, None, :], q)
+        out.copy_(self._ntt_form(out, idx, True))
+
     def decode_coeffs(self, res: np.ndarray, scale: float) -> np.ndarray:
         """[l+1, N] coeff-domain residues (host) → float64[N], CRT when l > 0."""
         p = self.params
@@ -157,8 +174,15 @@ class Encoder:
         ntt = self.tables.ntt
         if ntt.device.type != "cpu":
             tracing.count("encode.bytes_up", res.nbytes)
-        poly = ntt.ntt(torch.from_numpy(res).to(ntt.device), idx)
+        poly = self._ntt_form(torch.from_numpy(res).to(ntt.device), idx, mont)
+        return Plaintext(poly, level=level, scale=float(scale), is_mont=mont)
+
+    def _ntt_form(self, res: torch.Tensor, idx, mont: bool) -> torch.Tensor:
+        """[..., l, N] residues on the limbs `idx` → NTT domain, in
+        Montgomery form when `mont`."""
+        ntt = self.tables.ntt
+        poly = ntt.ntt(res, idx)
         if mont:
             q, qinv, r2, _ = ntt.tabs(idx)
             poly = mm.to_mont(poly, q, qinv, r2)
-        return Plaintext(poly, level=level, scale=float(scale), is_mont=mont)
+        return poly

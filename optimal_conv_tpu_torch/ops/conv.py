@@ -11,7 +11,10 @@ ct×pt products, a SetScale fold and rescale to level 0, and a log-depth
 pack of monomial products and Galois automorphisms with level-0 key
 switches.  ``_conv_pack`` runs that as plain tensor code with the
 channels as a leading dim: each butterfly stage's key switches are one
-batched call.
+batched call.  ``prep_ker`` makes those plaintexts on the device in one
+batched pass, equal residue for residue to the host composition of
+``reshape_ker`` and ``encode_ker_final`` (kept as its reference and its
+fallback), and hands them to the pack as one tensor.
 
 Spans (``utils/tracing.py``): ``conv_bn`` a call of ``eval_conv_bn`` (a
 root when no span is open: a conv request), ``encode.kernel`` a
@@ -110,6 +113,38 @@ def encode_ker_final(ker: np.ndarray, i: int, in_wid: int, in_batch: int,
     return out
 
 
+# The batched kernel encoding works on chunks of output channels whose
+# float64 / int64 temporaries stay under this many bytes.
+_CHUNK_BYTES = 1 << 28
+
+
+class KernelPlaintexts(list):
+    """``prep_ker``'s list (a Plaintext at 0, norm, 2·norm, ..., None
+    elsewhere) with ``polys``: the [C, l, N] tensor whose rows are those
+    Plaintexts' ``poly``, so that ``conv_then_pack`` stacks nothing."""
+
+    def __init__(self, items, polys: torch.Tensor):
+        super().__init__(items)
+        self.polys = polys
+
+
+def _ker_layout(in_wid: int, ker_wid: int, max_bat: int, in_norm: int,
+                real_ib: int, device: torch.device):
+    """(pos, sign) [real_ib·k_sz] on `device`: where tap t of input
+    channel b of every kernel plaintext lands, and its sign.  The
+    composition of the overload placement (column in_norm·k_sz·b + t of
+    ``max_ker``), ``encode_ker_final``'s placement of that column and its
+    negacyclic left shift by adj, which negates what wraps around."""
+    k_sz = ker_wid * ker_wid
+    vec_size = in_wid * in_wid * max_bat
+    adj = (max_bat - 1) + max_bat * (in_wid + 1) * (ker_wid - 1) // 2
+    j = max_bat - 1 - in_norm * torch.arange(real_ib, device=device)[:, None]
+    k = k_sz - 1 - torch.arange(k_sz, device=device)[None, :]
+    pos = ((in_wid * (k // ker_wid) + k % ker_wid) * max_bat + j - adj).ravel()
+    wrap = pos < 0
+    return pos + vec_size * wrap, 1.0 - 2.0 * wrap.to(torch.float64)
+
+
 @tracing.spanned("encode.kernel")
 def prep_ker(ctx: CkksContext, ker_in: np.ndarray, bn_a: np.ndarray,
              in_wid: int, ker_wid: int, real_ib: int, real_ob: int,
@@ -121,11 +156,85 @@ def prep_ker(ctx: CkksContext, ker_in: np.ndarray, bn_a: np.ndarray,
     ``in_norm`` is the input channel stride where it differs from the
     output one (None: ``norm``).  The ImageNet FC-1000 head reads input
     channel c at 2c and writes its 1000 logits at stride 1
-    (``optimal_conv_tpu/ops/conv.py:116-150``)."""
+    (``optimal_conv_tpu/ops/conv.py:116-150``).
+
+    The C = max_bat/norm plaintexts are made on the context's device in
+    one pass from the weights uploaded once (``_ker_layout`` places
+    them) into one [C, l, N] tensor, the returned ``KernelPlaintexts``'
+    ``polys``; the residues equal ``_prep_ker_host``'s, the composition
+    ``reshape_ker`` → BN fold → ``max_ker`` → ``encode_ker_final`` →
+    ``encode_coeffs``, which takes weights whose scaled magnitude may
+    reach 2^62 (the integers then exceed int64).  Counters
+    ``encode.kernel.pts`` / ``encode.kernel.host_pts``: the plaintexts
+    made each way."""
     p = ctx.params
     max_bat = p.n // (in_wid * in_wid)
     if in_norm is None:
         in_norm = norm
+    k_sz = ker_wid * ker_wid
+    ker = np.asarray(ker_in, dtype=np.float64).ravel()
+    bn = np.broadcast_to(np.asarray(bn_a, dtype=np.float64), (real_ob,))
+    in_batch = len(ker) // (k_sz * real_ob)
+    if (real_ib > in_batch or norm * (real_ob - 1) >= max_bat
+            or in_norm * (real_ib - 1) >= max_bat):
+        raise ValueError(f"kernel of {real_ob} x {in_batch} channels does not "
+                         f"fit {real_ib} inputs at stride {in_norm} and "
+                         f"outputs at stride {norm} in a batch of {max_bat}")
+    n_pts = len(range(0, max_bat, norm))
+    top = max(ker.max(), -ker.min()) * np.abs(bn).max() if ker.size else 0.0
+    if not top * p.scale < 2.0 ** 62:
+        tracing.count("encode.kernel.pts", 0)
+        tracing.count("encode.kernel.host_pts", n_pts)
+        return _prep_ker_host(ctx, ker, bn, in_wid, ker_wid, real_ib, real_ob,
+                              norm, trans, in_norm)
+    tracing.count("encode.kernel.pts", n_pts)
+    tracing.count("encode.kernel.host_pts", 0)
+    enc = ctx.encoder
+    dev = enc.tables.ntt.device
+    ker = ker[: k_sz * real_ob * in_batch]
+    if not ker.flags.writeable:
+        ker = ker.copy()
+    ker_d = torch.from_numpy(ker).to(dev)
+    bn_d = torch.from_numpy(bn.copy()).to(dev)
+    if dev.type != "cpu":
+        tracing.count("encode.bytes_up", ker_d.nbytes + bn_d.nbytes)
+    # w[r, b, t] = ker_rs[r, b·k_sz + t] of reshape_ker
+    if trans:
+        w = ker_d.view(k_sz, real_ob, in_batch).flip(0).permute(1, 2, 0)
+    else:
+        w = ker_d.view(k_sz, in_batch, real_ob).permute(2, 1, 0)
+    w = w[:, :real_ib]
+    pos, sign = _ker_layout(in_wid, ker_wid, max_bat, in_norm, real_ib, dev)
+    idx = enc.rows(ECD_LEVEL, False)
+    polys = torch.empty((n_pts, len(idx), p.n), dtype=torch.int64, device=dev)
+    polys[real_ob:].zero_()
+    nnz = real_ib * k_sz
+    step = max(1, _CHUNK_BYTES // (8 * ((2 + len(idx)) * nnz
+                                         + 2 * len(idx) * p.n)))
+    for r0 in range(0, real_ob, step):
+        r1 = min(r0 + step, real_ob)
+        # NumPy's order: (ker·bn_a), the shift's sign, ·scale, round half
+        # to even
+        v = torch.empty((r1 - r0, real_ib, k_sz), dtype=torch.float64,
+                        device=dev)
+        torch.mul(w[r0:r1], bn_d[r0:r1, None, None], out=v)
+        v = v.view(r1 - r0, nnz).mul_(sign).mul_(p.scale).round_()
+        enc.encode_int_coeffs(v.to(torch.int64), pos, ECD_LEVEL,
+                              polys[r0:r1])
+    out = [None] * max_bat
+    for r in range(n_pts):
+        out[r * norm] = Plaintext(polys[r], level=ECD_LEVEL,
+                                  scale=float(p.scale), is_mont=True)
+    return KernelPlaintexts(out, polys)
+
+
+def _prep_ker_host(ctx: CkksContext, ker_in: np.ndarray, bn_a: np.ndarray,
+                   in_wid: int, ker_wid: int, real_ib: int, real_ob: int,
+                   norm: int, trans: bool, in_norm: int) -> list:
+    """``prep_ker`` one plaintext at a time on the host, for weights whose
+    integers may not fit int64."""
+    p = ctx.params
+    max_bat = p.n // (in_wid * in_wid)
     k_sz = ker_wid * ker_wid
     ker_rs = reshape_ker(ker_in, k_sz, real_ob, trans)
     ker_rs = ker_rs * np.asarray(bn_a)[:, None]
@@ -187,7 +296,7 @@ def conv_then_pack(ctx: CkksContext, ct_in: Ciphertext, pl_ker: list,
     if ct_in.level != ECD_LEVEL:
         raise ValueError(f"conv inputs live at the ECD level {ECD_LEVEL}")
     per_scale = out_scale / (max_ob // norm)
-    pls = torch.stack([pl_ker[i].poly for i in range(0, max_ob, norm)])
+    pls = _kernel_polys(pl_ker, [pl_ker[i] for i in range(0, max_ob, norm)])
     if bias_pt.is_mont or bias_pt.level != 0:
         raise ValueError("the bias must be a level-0 standard-form plaintext")
     c0, c1 = _conv_pack(ctx, ct_in.c0, ct_in.c1, pls, max_ob, norm,
@@ -196,6 +305,19 @@ def conv_then_pack(ctx: CkksContext, ct_in: Ciphertext, pl_ker: list,
     out = Ciphertext(c0, c1, level=0, scale=per_scale * (max_ob // norm))
     assert abs(out.scale / out_scale - 1) < 1e-9, (out.scale, out_scale)
     return out
+
+
+def _kernel_polys(pl_ker: list, pts: list) -> torch.Tensor:
+    """[C, l, N]: the polys of `pts`, ``pl_ker``'s own ``polys`` when
+    they are still its rows in order (``prep_ker``'s result), else a
+    stacked copy."""
+    polys = getattr(pl_ker, "polys", None)
+    if polys is not None and polys.shape[0] == len(pts):
+        base, step = polys.data_ptr(), polys.stride(0) * polys.element_size()
+        if all(pt.poly.data_ptr() == base + r * step
+               for r, pt in enumerate(pts)):
+            return polys
+    return torch.stack([pt.poly for pt in pts])
 
 
 def _conv_pack(ctx: CkksContext, c0: torch.Tensor, c1: torch.Tensor,

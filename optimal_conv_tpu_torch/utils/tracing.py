@@ -33,8 +33,14 @@ kept in memory; ``records()`` and ``clear()`` read and reset them.
 Counters are always on: ``count(name, n)`` is a plain add at a rare
 event.  ``counters()`` reads them, the gauges (``gauge``), and every
 ``KernelStats`` of ``core/cuda_lib.py`` (``kernel.<name>.launches``,
-``.rows``, ``.plain_calls``), which register here.  The recorder serves
-one thread: the port drives a card from one.
+``.rows``, ``.plain_calls``), which register here.  The port's
+counters: ``keys.*`` (``ckks/context.py``), ``boot.builds`` /
+``boot.build_s`` (``ckks/bootstrap.py``), ``encode.bytes_up``
+(``ckks/encoding.py``: pageable bytes uploaded to encode) and, beside
+it, ``encode.kernel.pts`` / ``encode.kernel.host_pts``
+(``ops/conv.prep_ker``: kernel plaintexts made by the batched pass on the
+device / one at a time on the host).  The recorder serves one thread: the
+port drives a card from one.
 """
 
 from __future__ import annotations

@@ -806,3 +806,83 @@ def test_conv_bn_bl_on_card_equals_cpu(dev):
         assert s.launches > launches and s.plain_calls == plain
     assert len(card.switching_keys) == held, "the card made a key"
     _same_ct(got, want)
+
+
+# (in_wid, ker_wid, real_ib, real_ob, norm, in_norm) at logN 16
+KERNEL_GEOMS = {
+    "resnet20_block3": (8, 3, 64, 64, 16, None),
+    "tail_head_cut": (8, 7, 512, 64, 1, 2),     # the RMFC head, 64 logits
+}
+
+
+@pytest.mark.parametrize("geom", list(KERNEL_GEOMS))
+def test_prep_ker_batched_on_card(dev, geom, monkeypatch):
+    """``prep_ker``'s batched pass on the card at logN 16 equals the
+    per-plaintext host composition (and, for the block-3 conv, the CPU's
+    batched pass) residue for residue; ``conv_then_pack`` hands its
+    tensor to the pack without a copy; and prep + pack peak no higher
+    than the per-plaintext path's prep + pack, each warm."""
+    from optimal_conv_tpu_torch.ops import conv as convops
+
+    in_wid, kw, rib, rob, norm, in_norm = KERNEL_GEOMS[geom]
+    p = boot_params(16)
+    card = CkksContext(p, dev, seed=5)
+    rng = np.random.default_rng(19)
+    ker = rng.uniform(-1, 1, kw * kw * rib * rob) / kw
+    bn_a = rng.uniform(0.8, 1.2, rob)
+    max_bat = p.n // (in_wid * in_wid)
+    rows = range(0, max_bat, norm)
+
+    def batched():
+        return convops.prep_ker(card, ker, bn_a, in_wid, kw, rib, rob, norm,
+                                False, in_norm)
+
+    def host():
+        return convops._prep_ker_host(card, ker, bn_a, in_wid, kw, rib, rob,
+                                      norm, False, in_norm or norm)
+
+    got, want = batched(), host()
+    for i in rows:
+        assert torch.equal(got[i].poly, want[i].poly), i
+    if geom == "resnet20_block3":
+        cpu = convops.prep_ker(CkksContext(p, "cpu", seed=5), ker, bn_a,
+                               in_wid, kw, rib, rob, norm, False, in_norm)
+        for i in rows:
+            assert torch.equal(got[i].poly.cpu(), cpu[i].poly), i
+    del got, want
+
+    seen = []
+    real_pack = convops._conv_pack
+
+    def pack(ctx, c0, c1, pls, *rest):
+        seen.append(pls.data_ptr())
+        return real_pack(ctx, c0, c1, pls, *rest)
+    monkeypatch.setattr(convops, "_conv_pack", pack)
+    ct = card.encrypt(card.encoder.encode_coeffs(
+        rng.uniform(-1, 1, p.n), p.scale, convops.ECD_LEVEL))
+    bias = card.encoder.encode_coeffs(np.zeros(p.n), float(1 << 30), 0,
+                                      mont=False)
+
+    def conv(prep):
+        pl = prep()
+        out = convops.conv_then_pack(card, ct, pl, max_bat, norm,
+                                     float(1 << 30), bias)
+        return out, getattr(pl, "polys", None)
+
+    conv(batched)                       # keys made, caches filled
+    outs, peaks = {}, {}
+    for name, prep in (("host", host), ("batched", batched)):
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        outs[name], polys = conv(prep)
+        torch.cuda.synchronize(dev)
+        peaks[name] = torch.cuda.max_memory_allocated(dev) - base
+        if polys is not None:
+            assert seen[-1] == polys.data_ptr()
+        del polys
+    print(f"{geom}: prep_ker + conv_then_pack peak above the base, bytes: "
+          f"{peaks}")
+    assert peaks["batched"] <= peaks["host"], peaks
+    assert torch.equal(outs["batched"].c0, outs["host"].c0)
+    assert torch.equal(outs["batched"].c1, outs["host"].c1)

@@ -249,7 +249,8 @@ def test_kernel_launches_tallied_by_kernel(clock):
 
 def test_conv_request_is_a_conv_bn_root():
     """A conv + BN call with no span open is a root ``conv_bn``: its kernel
-    encoding (one ``encode`` a kernel plaintext), the bias's encoding and
+    encoding (one batched pass, no ``encode`` a kernel plaintext: the
+    counter ``encode.kernel.pts`` counts them), the bias's encoding and
     the pack under it; the pack's Galois keys counted as made."""
     p = CkksParams(log_n=10, logq=(60, 45), logp=(61,), log_scale=30, h=64)
     ctx = CkksContext(p, CPU, seed=3)
@@ -272,8 +273,9 @@ def test_conv_request_is_a_conv_bn_root():
     kids = [r["name"] for r in recs if r["parent"] == root["id"]]
     assert kids == ["encode.kernel", "encode", "pack"]
     kernel = _by_name(recs)["encode.kernel"]
-    under = [r for r in recs if r["parent"] == kernel["id"]]
-    assert len(under) == nch and {r["name"] for r in under} == {"encode"}
+    assert not [r for r in recs if r["parent"] == kernel["id"]]
+    assert root["counters"]["encode.kernel.pts"] == nch
+    assert "encode.kernel.host_pts" not in root["counters"]
     assert root["counters"]["keys.made"] == len(
         convops._pack_steps(p.log_n, p.n // (in_wid * in_wid), norm))
     assert sum(r["eval"][0] for r in recs) > 0
