@@ -4,15 +4,24 @@ versions of the kernels), at logN 9 on ``mini_boot_params(9)``.
 Both packages get the same secret key from the same context seed and
 encrypt from the same draws; the switching keys (plain Galois keys for
 the giants and the conjugation, pre-permuted hoisting keys for the
-babies, relinearisation keys) are made by the JAX context while it runs
-and are carried across through ``interop`` AFTER that run.  The port
-must then run without making a key of its own.  Residues are compared
-with ``np.array_equal``, levels and scales with ``==``; the roundtrips
-are also held to the JAX tests' decrypt-level bars (2e-2 after ``ctos``,
-3e-2 after ``stoc``).
+babies) are made by the JAX context while it runs and are carried across
+through ``interop`` AFTER that run.  The port must then run without
+making a key of its own.  Residues are compared with ``np.array_equal``,
+levels and scales with ``==``; the roundtrips are also held to the JAX
+tests' decrypt-level bars (2e-2 after ``ctos``, 3e-2 after ``stoc``).
+
+The JAX side of a whole bootstrap takes minutes, so tier-1 runs the port
+alone there, each case on a fresh context and on keys it draws itself
+(each from its own seed), and compares its outputs with the JAX
+package's recorded as digests in ``tests/golden/torch_jax_replays.json``
+("full_bootstrap", "sparse_bootstrap").  The slow_e2e replay here checks
+the recording: the JAX package's bootstraps on the port's keys, carried
+by ``interop.save_keys``, JAX making none.
 """
 
 import contextlib
+import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -28,6 +37,9 @@ from optimal_conv_tpu_torch.ckks.context import CkksContext
 from optimal_conv_tpu_torch.ckks.params import mini_boot_params
 from optimal_conv_tpu_torch.ops.repack import reverse_bits
 from optimal_conv_tpu_torch.utils import tracing
+
+from .test_torch_pipeline import (_against_recording, _digest,
+                                  _on_port_keys, _replay_entry, _to_jax)
 
 CPU = torch.device("cpu")
 LOG_N = 9
@@ -194,11 +206,12 @@ def test_fit_cos_poly_equal(method):
         tboot.fit_cos_poly(7, 12.0, 3, method="remez")
 
 
-def _build(pair, monkeypatch, ls, dh):
+def _jax_boot(jctx, monkeypatch, ls, dh):
     monkeypatch.setenv("OPTCONV_DOUBLE_HOIST", "1" if dh else "0")
-    jbt = jboot.SplitBootstrapper(pair.j, log_sparse=ls, **BOOT)
-    tbt = tboot.SplitBootstrapper(pair.t, log_sparse=ls, double_hoist=dh,
-                                  **BOOT)
+    return jboot.SplitBootstrapper(jctx, log_sparse=ls, **BOOT)
+
+
+def _same_build(jbt, tbt):
     assert (tbt.delta0, tbt.delta_m, tbt.post_ctos_level,
             tbt.post_stoc_level) == (jbt.delta0, jbt.delta_m,
                                      jbt.post_ctos_level, jbt.post_stoc_level)
@@ -206,64 +219,151 @@ def _build(pair, monkeypatch, ls, dh):
             for lt in tbt.ctos_lt + tbt.stoc_lt] == \
         [(lt.level, lt.pt_scale, lt.rescale, lt.dh, lt.bs, lt.babies)
          for lt in jbt.ctos_lt + jbt.stoc_lt]
-    return jbt, tbt
 
 
-def test_full_bootstrap_bit_exact_and_roundtrip(pair, monkeypatch):
-    """log_sparse 0, double-hoisted: two ciphertexts in bit-reversed slot
-    order after ``ctos``, the coefficients back after ``stoc``."""
-    p = pair.t.params
-    jbt, tbt = _build(pair, monkeypatch, 0, True)
-    v = pair.rng.uniform(-1, 1, p.n)
-    jct, tct = pair.encrypt_coeffs(v, tbt.delta0)
-    jup, jlow = jbt.ctos(jct)
-    jout = jbt.stoc(jup, jlow)
+# the recorded cases: a fresh context's first encryption of uniform(-1, 1)
+# coefficients drawn from `rng` (every 2^log_sparse-th, the rest 0), put
+# through ``ctos`` and ``stoc``
+CASES = {
+    "full_bootstrap": dict(seed=SEED, rng=17, log_n=LOG_N, boot=BOOT,
+                           log_sparse=0, double_hoist=True, stoc_groups=None),
+    "sparse_bootstrap": dict(seed=SEED, rng=23, log_n=LOG_N, boot=BOOT,
+                             log_sparse=1, double_hoist=False, stoc_groups=3),
+}
+
+
+def _port_case(name):
+    """The port's half of a recorded case, on a context of its own: the
+    shared ``pair.t`` holds keys carried from JAX by the other tests."""
+    c = CASES[name]
+    ls = c["log_sparse"]
+    ctx = CkksContext(mini_boot_params(LOG_N, stoc_groups=c["stoc_groups"]),
+                      CPU, seed=SEED)
+    tbt = tboot.SplitBootstrapper(ctx, log_sparse=ls,
+                                  double_hoist=c["double_hoist"], **BOOT)
+    v = np.zeros(ctx.params.n)
+    v[:: 1 << ls] = np.random.default_rng(c["rng"]).uniform(
+        -1, 1, ctx.params.n >> ls)
+    tct = ctx.encrypt(ctx.encoder.encode_coeffs(v, tbt.delta0, 0))
     stages = []
-    tup, tlow = pair.run_port(
-        lambda: tbt.ctos(tct, on_stage=lambda name, _: stages.append(name)))
-    tout = pair.run_port(lambda: tbt.stoc(tup, tlow))
-    assert stages == ["ctos.raise+subsum", "ctos.lt0", "ctos.lt1", "ctos.lt2",
-                      "ctos.conj", "ctos.evalmod"]
-    _same(tup, jup)
-    _same(tlow, jlow)
-    _same(tout, jout)
+    tup, tlow = tbt.ctos(tct, on_stage=lambda stage, _: stages.append(stage))
+    tout = tbt.stoc(tup, tlow)
+    return dict(name=name, ctx=ctx, tbt=tbt, v=v, tct=tct, stages=stages,
+                tup=tup, tlow=tlow, tout=tout)
+
+
+@pytest.fixture(scope="module")
+def full():
+    return _port_case("full_bootstrap")
+
+
+@pytest.fixture(scope="module")
+def sparse():
+    return _port_case("sparse_bootstrap")
+
+
+def _entry(run, **cts):
+    """The replay entry of a port run; the ciphertexts in `cts` (JAX's)
+    stand in for the port's of the same name."""
+    outs = {"jup": run["tup"], "jlow": run["tlow"], "jout": run["tout"],
+            **cts}
+    return _replay_entry(CASES[run["name"]], run["ctx"],
+                         **{k: ct for k, ct in outs.items() if ct is not None})
+
+
+def test_full_bootstrap_bit_exact_and_roundtrip(pair, full, monkeypatch):
+    """log_sparse 0, double-hoisted: two ciphertexts in bit-reversed slot
+    order after ``ctos``, the coefficients back after ``stoc``; all three
+    equal to JAX's recorded ones."""
+    ctx, tbt, tup, tlow, tout = (full[k] for k in ("ctx", "tbt", "tup",
+                                                   "tlow", "tout"))
+    p = ctx.params
+    _same_build(_jax_boot(pair.j, monkeypatch, 0, True), tbt)
+    assert full["stages"] == ["ctos.raise+subsum", "ctos.lt0", "ctos.lt1",
+                              "ctos.lt2", "ctos.conj", "ctos.evalmod"]
+    _against_recording(full_bootstrap=_entry(full))
     assert tout.level == 1
+    v = full["v"]
     br = np.array([reverse_bits(i, p.log_slots) for i in range(p.slots)])
-    np.testing.assert_allclose(pair.t.decrypt_decode_slots(tup).real, v[br],
+    np.testing.assert_allclose(ctx.decrypt_decode_slots(tup).real, v[br],
                                atol=2e-2)
-    np.testing.assert_allclose(pair.t.decrypt_decode_slots(tlow).real,
+    np.testing.assert_allclose(ctx.decrypt_decode_slots(tlow).real,
                                v[br + p.slots], atol=2e-2)
-    np.testing.assert_allclose(pair.t.decrypt_decode_coeffs(tout), v, atol=3e-2)
+    np.testing.assert_allclose(ctx.decrypt_decode_coeffs(tout), v, atol=3e-2)
     with pytest.raises(ValueError):
         tbt.stoc(tup, None)
 
 
-def test_sparse_bootstrap_bit_exact_and_roundtrip(pair, monkeypatch):
+@pytest.mark.parametrize("fault", ["c1 residue", "scale ulp"])
+def test_recording_sees_a_planted_fault(full, fault):
+    """The comparison with the recording reads the residues and the scale:
+    one residue of the bootstrap output's c1 one higher, or its scale one
+    ulp larger, fails it."""
+    tout = full["tout"]
+    if fault == "c1 residue":
+        c1 = tout.c1.clone()
+        q = full["ctx"].params.q_moduli[1]
+        c1[1, 7] = (c1[1, 7] + 1) % q
+        bad = dataclasses.replace(tout, c1=c1)
+    else:
+        bad = dataclasses.replace(tout, scale=math.nextafter(tout.scale,
+                                                             math.inf))
+    _against_recording(full_bootstrap=_entry(full))
+    with pytest.raises(AssertionError, match="jout"):
+        _against_recording(full_bootstrap=_entry(full, jout=bad))
+
+
+def test_sparse_bootstrap_bit_exact_and_roundtrip(pair, sparse, monkeypatch):
     """log_sparse 1, single-hoisted, with three StoC matrices on the two
-    StoC levels: the top level holds two, the first at √q un-rescaled."""
-    p = pair.t.params
+    StoC levels: the top level holds two, the first at √q un-rescaled;
+    both outputs equal to JAX's recorded ones."""
+    ctx, tbt, tf, tout = (sparse[k] for k in ("ctx", "tbt", "tup", "tout"))
+    p = ctx.params
     ls = 1
     with pair.layout(stoc_groups=3):
-        jbt, tbt = _build(pair, monkeypatch, ls, False)
+        _same_build(_jax_boot(pair.j, monkeypatch, ls, False), tbt)
     assert [(lt.level, lt.rescale) for lt in tbt.stoc_lt] == \
         [(3, False), (3, True), (2, True)]
-    v = np.zeros(p.n)
-    v[:: 1 << ls] = pair.rng.uniform(-1, 1, p.n >> ls)
-    jct, tct = pair.encrypt_coeffs(v, tbt.delta0)
-    jf, jnone = jbt.ctos(jct)
-    jout = jbt.stoc(jf, None)
-    tf, tnone = pair.run_port(lambda: tbt.ctos(tct))
-    tout = pair.run_port(lambda: tbt.stoc(tf, None))
-    assert jnone is None and tnone is None
-    _same(tf, jf)
-    _same(tout, jout)
+    assert sparse["tlow"] is None
+    _against_recording(sparse_bootstrap=_entry(sparse))
+    v = sparse["v"]
     n_sub = p.slots >> ls
-    z = pair.t.decrypt_decode_slots(tf).real
+    z = ctx.decrypt_decode_slots(tf).real
     cp = v[:: 1 << ls]
     br = np.array([reverse_bits(i, p.log_slots - ls) for i in range(n_sub)])
     np.testing.assert_allclose(z[:n_sub], cp[br], atol=2e-2)
     np.testing.assert_allclose(z[n_sub: 2 * n_sub], cp[br + n_sub], atol=2e-2)
-    np.testing.assert_allclose(pair.t.decrypt_decode_coeffs(tout), v, atol=3e-2)
+    np.testing.assert_allclose(ctx.decrypt_decode_coeffs(tout), v, atol=3e-2)
+
+
+def _ctos_stoc(bt, ct):
+    up, low = bt.ctos(ct)
+    return up, low, bt.stoc(up, low)
+
+
+@pytest.mark.slow_e2e
+def test_replay_jax_bootstraps_on_the_port_keys(full, sparse, tmp_path,
+                                                monkeypatch):
+    """The recording's source: in each recorded case, the JAX package's
+    ``ctos`` + ``stoc`` on the port's switching keys (``interop.save_keys``
+    → its ``load_keys``; it makes none), from the port's input ciphertext,
+    give the recorded digests, and the port's outputs the same."""
+    entries = {}
+    for run in (full, sparse):
+        c = CASES[run["name"]]
+        jctx = JaxContext(jax_mini(LOG_N, stoc_groups=c["stoc_groups"]),
+                          seed=SEED)
+        jbt = _jax_boot(jctx, monkeypatch, c["log_sparse"], c["double_hoist"])
+        jct = _to_jax(run["tct"])
+        jup, jlow, jout = _on_port_keys(
+            jctx, run["ctx"], str(tmp_path / f"{run['name']}.npz"),
+            lambda: _ctos_stoc(jbt, jct))
+        assert (jlow is None) == (run["tlow"] is None)
+        entries[run["name"]] = _entry(run, jup=jup, jlow=jlow, jout=jout)
+        for t, j in [("tup", jup), ("tlow", jlow), ("tout", jout)]:
+            if j is not None:
+                assert _digest(run[t]) == _digest(j), (run["name"], t)
+    _against_recording(**entries)
 
 
 def test_family_builds_lazily_and_bounds_residency(pair):

@@ -15,15 +15,22 @@ packages.  One whole layer against JAX is ``tests/test_torch_block_layer.py``,
 a file of its own so that it runs beside this one.
 """
 
+import hashlib
+import json
+import os
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from optimal_conv_tpu.ckks.context import CkksContext as JaxContext
 from optimal_conv_tpu.ckks.params import mini_boot_params as jax_mini
+from optimal_conv_tpu.ckks.types import Ciphertext as JaxCiphertext
 from optimal_conv_tpu.ops import conv as jconv
 from optimal_conv_tpu.ops import pipeline as jpipe
 from optimal_conv_tpu.ops import repack as jrp
+from optimal_conv_tpu.utils import serialization as jser
 
 from optimal_conv_tpu_torch import interop
 from optimal_conv_tpu_torch.ckks.bootstrap import SplitBootstrapper
@@ -81,6 +88,84 @@ def _same(t, j):
     assert t.level == j.level and t.scale == j.scale
     assert np.array_equal(interop.to_numpy(t.c0), np.asarray(j.c0))
     assert np.array_equal(interop.to_numpy(t.c1), np.asarray(j.c1))
+
+
+# the JAX package's outputs in the port parity cases whose JAX side takes
+# minutes, recorded by their slow_e2e replays (on the port's keys)
+REPLAYS = os.path.join(os.path.dirname(__file__), "golden",
+                       "torch_jax_replays.json")
+
+
+def _sha(a) -> str:
+    """sha256 of residues as int64, C order (a port tensor or a JAX array)."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    a = np.ascontiguousarray(np.asarray(a).view(np.int64))
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def _digest(ct) -> tuple:
+    """(sha256 of c0, sha256 of c1, level, scale) of a port or JAX
+    ciphertext."""
+    return _sha(ct.c0), _sha(ct.c1), ct.level, ct.scale
+
+
+def _keys_digest(ctx) -> str:
+    """sha256 of every switching key the port context holds: tag, d0, d1,
+    in the order of the tags."""
+    h = hashlib.sha256()
+    for tag, swk in sorted(ctx.switching_keys.items(),
+                           key=lambda kv: repr(kv[0])):
+        h.update(repr(tag).encode())
+        h.update(_sha(swk.d0).encode())
+        h.update(_sha(ctx.swk_d1(swk)).encode())
+    return h.hexdigest()
+
+
+def _to_jax(ct) -> JaxCiphertext:
+    """The JAX package's ciphertext of the same residues."""
+    return JaxCiphertext(jnp.asarray(interop.to_numpy(ct.c0)),
+                         jnp.asarray(interop.to_numpy(ct.c1)),
+                         level=ct.level, scale=ct.scale)
+
+
+def _on_port_keys(jctx, tctx, path: str, fn):
+    """fn() on the JAX context after the port ran: on the port's switching
+    keys only, carried by ``interop.save_keys`` → JAX's ``load_keys``."""
+    interop.save_keys(path, tctx)
+    assert jser.load_keys(path, jctx) == len(tctx.switching_keys) > 0
+    held = len(jctx._swk_cache.d)
+    out = fn()
+    assert len(jctx._swk_cache.d) == held, "JAX made a key"
+    return out
+
+
+def _replay_entry(case: dict, ctx, **cts) -> dict:
+    """What a replay records: the case's seeds and geometry, the digest of
+    the port's switching keys in `ctx`, and each ciphertext's digest."""
+    return {"case": case, "keys": _keys_digest(ctx),
+            **{name: list(_digest(ct)) for name, ct in cts.items()}}
+
+
+def _against_recording(**entries) -> None:
+    """Each replay entry (name=entry) must be the recorded one.  Those that
+    are not are printed: after a replay with OPTCONV_SLOW=1, what to
+    record."""
+    with open(REPLAYS) as f:
+        recs = json.load(f)
+    changed = {name: e for name, e in entries.items() if e != recs.get(name)}
+    if changed:
+        print(json.dumps(changed, indent=1))
+    for name, entry in entries.items():
+        rec = recs.get(name, {})
+        assert entry["case"] == rec.get("case"), (
+            f"{name}: the case changed: replay with OPTCONV_SLOW=1 and record")
+        assert entry["keys"] == rec["keys"], (
+            f"{name}: the port's keys changed: replay with OPTCONV_SLOW=1 and "
+            "record")
+        differ = sorted(k for k in set(rec) | set(entry)
+                        if entry.get(k) != rec.get(k))
+        assert not differ, f"{name}: {differ} differ from the recording"
 
 
 def _same_maps(t, j):
