@@ -537,8 +537,19 @@ class SplitBootstrapper:
             mark("ctos.evalmod", out)
             return out, None
 
+    def eval_mod_key(self, ct: Ciphertext) -> tuple:
+        """What decides ``_eval_mod``'s launches besides the bootstrapper:
+        the input's level and shape (its scale is replaced by Δm)."""
+        return ("evalmod", ct.level, tuple(ct.c0.shape))
+
     def _eval_mod(self, ct: Ciphertext) -> Ciphertext:
-        """values y = payload/(K·q0) → values payload/Δ0, scale ≈ Δ."""
+        """values y = payload/(K·q0) → values payload/Δ0, scale ≈ Δ.  On
+        the card, a CUDA graph of this bootstrapper replays it
+        (``ckks/graphs.py``)."""
+        return self.ctx._graphs.run(self.eval_mod_key(ct), ct,
+                                    self._eval_mod_body, owner=self)
+
+    def _eval_mod_body(self, ct: Ciphertext) -> Ciphertext:
         ctx = self.ctx
         p = ctx.params
         ct = ct.with_scale(self.delta_m)  # absorb float drift of λ folding
@@ -606,7 +617,8 @@ class BootstrapperFamily:
 
     The fork keeps all 5 bootstrappers resident for the whole run
     (btp..btp5, main.go:480-505).  max_live=None does the same; an
-    integer keeps at most that many, dropping the least recently used.
+    integer keeps at most that many, dropping the least recently used
+    and its CUDA graphs.
     A build is a span ``boot.build`` (attribute log_sparse) and adds to
     the counters ``boot.builds`` and ``boot.build_s``, its host seconds
     (``utils/tracing.py``)."""
@@ -622,7 +634,7 @@ class BootstrapperFamily:
         btp = self._live.pop(ls, None)
         if btp is None:
             while self.max_live is not None and len(self._live) >= self.max_live:
-                self._live.pop(next(iter(self._live)))
+                self.ctx._graphs.drop(self._live.pop(next(iter(self._live))))
             t0 = time.perf_counter()
             with tracing.span("boot.build", log_sparse=ls):
                 btp = SplitBootstrapper(self.ctx, log_sparse=ls, **self.kwargs)

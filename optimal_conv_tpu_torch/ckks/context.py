@@ -62,6 +62,7 @@ from ..core import threefry
 from ..device import resolve_device
 from ..utils import tracing
 from .encoding import Encoder
+from .graphs import GraphCache
 from .params import CkksParams, DeviceTables
 from .types import Ciphertext, Plaintext
 
@@ -232,7 +233,13 @@ class CkksContext:
     route, "butterfly" (K2/K3 on the card), "mxu" (the four-step matrix
     transform) or "auto" (the JAX package's default: the matrix route at
     logN >= 14 on calls over at most 12 limbs); the JAX package's
-    ``OPTCONV_NTT_BACKEND``.  Every route gives the same residues."""
+    ``OPTCONV_NTT_BACKEND``.  Every route gives the same residues.
+
+    ``_graphs`` captures and replays the bootstrapper's polynomial
+    evaluations as CUDA graphs (``ckks/graphs.py``) where ``GRAPHS`` is
+    true: all of the context's work runs on the current stream."""
+
+    GRAPHS = True
 
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)
@@ -271,7 +278,8 @@ class CkksContext:
 
     def set_secret_key(self, s: np.ndarray) -> None:
         """Install the secret key from its signed integer coefficients;
-        drops every switching key derived from the previous one."""
+        drops every switching key derived from the previous one, and
+        every CUDA graph that read them."""
         p = self.params
         self._sk_ints = np.asarray(s, dtype=np.int64)
         res = mm.centered_to_residues(self._sk_ints, p.moduli)
@@ -283,6 +291,8 @@ class CkksContext:
         q, qinv, r2, _ = self.ntt.tabs(all_idx)
         self.sk2_ntt = mm.mul_mod(self.sk_ntt, self.sk_ntt, q, qinv, r2)
         self._swk_cache = _KeyCache(*self._key_budgets)
+        # the CUDA graphs read the keys of the old secret by address
+        self._graphs = GraphCache(self.GRAPHS)
 
     @property
     def switching_keys(self) -> _KeyCache:
@@ -442,14 +452,16 @@ class CkksContext:
         be dropped by the cache's memo budget at once; the tensor returned
         stays valid."""
         if swk.d1 is not None:
-            return swk.d1
-        if swk.d1_cache is None:
+            d1 = swk.d1
+        elif swk.d1_cache is None:
             tracing.count("keys.d1_drawn")
             d1 = self._uniform_mont(swk.seed, swk.d0.shape[0], swk.level,
                                     swk.perm)
             self._swk_cache.memoise(swk, d1)
-            return d1
-        return swk.d1_cache
+        else:
+            d1 = swk.d1_cache
+        self._graphs.hold(swk, d1)
+        return d1
 
     def _hit(self, key) -> SwitchingKey | None:
         """The cached key of `key` (counted as a hit), or None."""
@@ -644,8 +656,15 @@ class CkksContext:
                             dtype=torch.int64, device=self.device)[:, None]
 
     def add_const(self, a: Ciphertext, const: float) -> Ciphertext:
-        """Add a scalar to every slot, encoded at the ciphertext's own scale."""
-        vals = self._const_col(int(round(const * a.scale)), a.level)
+        """Add a scalar to every slot, encoded at the ciphertext's own
+        scale.  The column is cached, as ``mul_scalar_int``'s: an upload
+        from host memory would drain the stream, and cannot be captured
+        in a CUDA graph."""
+        c = int(round(const * a.scale))
+        key = ("add", c, a.level)
+        vals = self._pt_cache.get(key)
+        if vals is None:
+            vals = self._pt_cache[key] = self._const_col(c, a.level)
         return Ciphertext(mm.add_mod(a.c0, vals, self._q(a.level)), a.c1,
                           level=a.level, scale=a.scale)
 

@@ -56,6 +56,13 @@ class KernelStats:
         if t0:
             tracing.kernel_call(self.name, rows, t0)
 
+    def credit(self, launches: int, by_rows) -> None:
+        """Count launches the wrapper did not make: a CUDA graph's replay
+        of those it captured (``ckks/graphs.py``).  No span tallies them:
+        no wrapper ran."""
+        self.launches += launches
+        self.by_rows.update(by_rows)
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")

@@ -44,9 +44,16 @@ def relu_np(x: np.ndarray, alpha: float = 0.0) -> np.ndarray:
     return np.maximum(0, x) + np.minimum(0, x * alpha)
 
 
+def relu_key(ct: Ciphertext, alpha: float, tight: bool | None) -> tuple:
+    """What decides ``eval_relu``'s launches on one context: the input's
+    level, scale and shape, alpha and tight."""
+    return ("relu", ct.level, ct.scale, tuple(ct.c0.shape), alpha, tight)
+
+
 def eval_relu(ctx: CkksContext, ct: Ciphertext, alpha: float = 0.0,
               tight: bool | None = None) -> Ciphertext:
     """leakyReLU(ct) = ct·(b·s(ct) + a); output scale ≈ params scale.
+    On the card a CUDA graph of its key replays it (``ckks/graphs.py``).
 
     tight (depth-optimal) evaluation spends depth(deg) levels per
     composite — 11 total (3+3+4+1) instead of 14, the fork chain's
@@ -56,6 +63,12 @@ def eval_relu(ctx: CkksContext, ct: Ciphertext, alpha: float = 0.0,
     level.  Auto (tight=None): chains whose boot_layout allots exactly
     11 relu levels run tight; layout-less chains fall back to the
     legacy margin heuristic (≥12 bits over the working scale)."""
+    return ctx._graphs.run(relu_key(ct, alpha, tight), ct,
+                           lambda c: _relu(ctx, c, alpha, tight))
+
+
+def _relu(ctx: CkksContext, ct: Ciphertext, alpha: float,
+          tight: bool | None) -> Ciphertext:
     a_const = (alpha + 1) / 2.0
     b_const = (1 - alpha) / 2.0
     p = ctx.params

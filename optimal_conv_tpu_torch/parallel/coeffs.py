@@ -293,6 +293,9 @@ class CoeffShardedContext(CkksContext):
     are not carried over to shards.  Its NTT runs on column shards, so it
     takes only the butterfly route (``ntt_backend="butterfly"``)."""
 
+    # its collectives (gloo, NCCL) are not captured in CUDA graphs: eager
+    GRAPHS = False
+
     def __init__(self, params: CkksParams, device, mesh: Mesh, seed: int = 0,
                  **kw):
         if kw.get("ntt_backend", "butterfly") != "butterfly":

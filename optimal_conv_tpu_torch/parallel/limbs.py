@@ -105,6 +105,9 @@ class LimbShardedContext(CkksContext):
     counts the collectives by kind: [calls, payload bytes, bytes moved
     (the padding of uneven shards included)]."""
 
+    # its collectives (gloo, NCCL) are not captured in CUDA graphs: eager
+    GRAPHS = False
+
     def __init__(self, params: CkksParams, device, mesh: Mesh, seed: int = 0,
                  **kw):
         tp = mesh.size("tp")

@@ -39,8 +39,11 @@ counters: ``keys.*`` (``ckks/context.py``), ``boot.builds`` /
 (``ckks/encoding.py``: pageable bytes uploaded to encode) and, beside
 it, ``encode.kernel.pts`` / ``encode.kernel.host_pts``
 (``ops/conv.prep_ker``: kernel plaintexts made by the batched pass on the
-device / one at a time on the host).  The recorder serves one thread: the
-port drives a card from one.
+device / one at a time on the host), ``graph.captures`` /
+``graph.replays`` / ``graph.eager`` (``ckks/graphs.py``: the
+bootstrapper's polynomial evaluations captured, replayed, or run with no
+graph).  The recorder serves one thread: the port drives a card from
+one.
 """
 
 from __future__ import annotations
@@ -300,6 +303,11 @@ def gauge(name: str, read) -> None:
 def register(stats) -> None:
     """A ``KernelStats`` reports into ``counters()`` from now on."""
     _stats.append(stats)
+
+
+def kernel_stats() -> list:
+    """Every registered ``KernelStats``."""
+    return list(_stats)
 
 
 def counters() -> dict:

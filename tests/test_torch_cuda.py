@@ -886,3 +886,100 @@ def test_prep_ker_batched_on_card(dev, geom, monkeypatch):
     assert peaks["batched"] <= peaks["host"], peaks
     assert torch.equal(outs["batched"].c0, outs["host"].c0)
     assert torch.equal(outs["batched"].c1, outs["host"].c1)
+
+
+def _kernel_moves(fn):
+    """fn() and the launches, by rows, it counted on the main kernels."""
+    stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV,
+             rns_kernel.STATS)
+    before = [(s.launches, dict(s.by_rows)) for s in stats]
+    out = fn()
+    return out, [(s.name, s.launches - n,
+                  {r: c - rows.get(r, 0) for r, c in s.by_rows.items()
+                   if c != rows.get(r, 0)}) for s, (n, rows) in zip(stats, before)]
+
+
+def _same_card(got, want):
+    assert (got.level, got.scale) == (want.level, want.scale)
+    assert torch.equal(got.c0, want.c0) and torch.equal(got.c1, want.c1)
+
+
+@pytest.fixture(scope="module")
+def graph_ctx(dev):
+    """The fork's chain at logN 12 on the card, a full-slot and a sparse
+    bootstrapper, and three ciphertexts at EvalMod's input level."""
+    from optimal_conv_tpu_torch.ckks.bootstrap import SplitBootstrapper
+
+    p = boot_params(12)
+    ctx = CkksContext(p, dev, seed=11)
+    btps = {ls: SplitBootstrapper(ctx, log_sparse=ls) for ls in (0, 2)}
+    rng = np.random.default_rng(11)
+    b = btps[0]
+    cts = [ctx.encrypt(ctx.encoder.encode_slots(
+        rng.uniform(-1, 1, p.slots) / b.k_range, b.delta_m, b.post_ctos_level))
+        for _ in range(3)]
+    return ctx, btps, cts
+
+
+@pytest.mark.parametrize("ls", [0, 2], ids=["full", "sparse"])
+def test_eval_mod_and_relu_graphs_replay_eager(dev, graph_ctx, ls):
+    """EvalMod and the ReLU as CUDA graphs: the first call captures, later
+    calls replay on other inputs, and every output equals the eager body's
+    residue for residue; a replay credits the kernel counters with the
+    eager call's launches, by rows; an output stays intact while other
+    graphs replay."""
+    from optimal_conv_tpu_torch.ops.relu import _relu, eval_relu
+
+    ctx, btps, cts = graph_ctx
+    btp = btps[ls]
+    want = [btp._eval_mod_body(c) for c in cts]
+    before = tracing.counters()
+    first = btp._eval_mod(cts[0])                 # eager, capture, replay
+    _, eager = _kernel_moves(lambda: btp._eval_mod_body(cts[1]))
+    second, replayed = _kernel_moves(lambda: btp._eval_mod(cts[1]))
+    third = btp._eval_mod(cts[2])
+    assert replayed == eager
+    after = tracing.counters()
+    for name, n in (("graph.eager", 1), ("graph.captures", 1),
+                    ("graph.replays", 2)):
+        assert after.get(name, 0) - before.get(name, 0) == n, name
+    for got, w in zip((first, second, third), want):
+        _same_card(got, w)
+    relu_want = [_relu(ctx, w, 0.0, None) for w in want]
+    relu_got = [eval_relu(ctx, w) for w in want]
+    _, eager = _kernel_moves(lambda: _relu(ctx, want[0], 0.0, None))
+    _, replayed = _kernel_moves(lambda: eval_relu(ctx, want[0]))
+    assert replayed == eager
+    for got, w in zip(relu_got, relu_want):
+        _same_card(got, w)
+    _same_card(second, want[1])                   # after the ReLU's replays
+
+
+def test_graphs_add_under_32_mib(dev):
+    """At logN 16, EvalMod of the full-slot bootstrapper and the ReLU
+    after it, captured on a warm context: what stays allocated beyond
+    their outputs is the shared input buffer, under 32 MiB."""
+    from optimal_conv_tpu_torch.ckks.bootstrap import SplitBootstrapper
+    from optimal_conv_tpu_torch.ops.relu import _relu, eval_relu
+
+    p = boot_params(16)
+    ctx = CkksContext(p, dev, seed=12)
+    btp = SplitBootstrapper(ctx, log_sparse=0)
+    x = np.random.default_rng(12).uniform(-1, 1, p.slots) / btp.k_range
+    ct = ctx.encrypt(ctx.encoder.encode_slots(x, btp.delta_m,
+                                              btp.post_ctos_level))
+    _relu(ctx, btp._eval_mod_body(ct), 0.0, None)      # keys and columns
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    mid = btp._eval_mod(ct)
+    out = eval_relu(ctx, mid)
+    torch.cuda.synchronize(dev)
+    outs = sum(t.numel() * 8 for c in (mid, out) for t in (c.c0, c.c1))
+    added = torch.cuda.memory_allocated(dev) - base - outs
+    print(f"graphs at logN 16: {added} bytes allocated beyond the outputs "
+          f"(buffer {ctx._graphs.buf.numel() * 8}), reserved "
+          f"{torch.cuda.memory_reserved(dev) - reserved:+d} bytes, EvalMod "
+          f"input level {ct.level}")
+    assert added < 32 << 20
+    _same_card(btp._eval_mod(ct), mid)
