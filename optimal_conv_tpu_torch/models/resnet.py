@@ -22,7 +22,10 @@ real_batch (16,32,64), norm (4,8,16)) on the card.
 
 Spans (``utils/tracing.py``): a runner's ``infer`` is the root ``image``;
 ``encrypt_image`` is ``encrypt`` and the FC head ``head``; the fused
-layers open their own ``layer`` spans.
+layers open their own ``layer`` spans.  ``WideFastResNetRunner``'s
+``StrConv_odd`` step is a span ``transition`` (attributes kind and
+halves: its fused-layer calls, 1 at wide 2, 2 at wide 3, whose sum it
+also holds).
 """
 
 from __future__ import annotations
@@ -613,20 +616,24 @@ class WideFastResNetRunner(Layout):
         t0 = time.perf_counter()
 
         ker = w.convs[li]
-        if cfg.wide == 2:
-            # one conv over interleaved inputs (i → 2i) at norm[0]/2
-            ct = layer(ct, li, "StrConv_odd", pow_, interleave(ker),
-                       w.bn_a[li], w.bn_b[li], w0, 2 * raw[1], rb[1], rb[1],
-                       self.norm[0] // 2, 1, self.str_maps[0])
-        else:
-            # even/odd out-channel halves at pack_pos 0 / 2, summed
-            c1 = layer(ct, li, "StrConv_odd", pow_, ker[:, :, :, 0::2],
-                       w.bn_a[li][0::2], w.bn_b[li][0::2], w0, 2 * raw[1],
-                       rb[0], rb[1] // 2, self.norm[0], 1, self.str_maps[0])
-            c2 = layer(ct, li, "StrConv_odd", pow_, ker[:, :, :, 1::2],
-                       w.bn_a[li][1::2], w.bn_b[li][1::2], w0, 2 * raw[1],
-                       rb[0], rb[1] // 2, self.norm[0], 1, self.str_maps[2])
-            ct = ctx.add(c1, c2)
+        with tracing.span("transition", kind="StrConv_odd",
+                          halves=1 if cfg.wide == 2 else 2):
+            if cfg.wide == 2:
+                # one conv over interleaved inputs (i → 2i) at norm[0]/2
+                ct = layer(ct, li, "StrConv_odd", pow_, interleave(ker),
+                           w.bn_a[li], w.bn_b[li], w0, 2 * raw[1], rb[1],
+                           rb[1], self.norm[0] // 2, 1, self.str_maps[0])
+            else:
+                # even/odd out-channel halves at pack_pos 0 / 2, summed
+                c1 = layer(ct, li, "StrConv_odd", pow_, ker[:, :, :, 0::2],
+                           w.bn_a[li][0::2], w.bn_b[li][0::2], w0,
+                           2 * raw[1], rb[0], rb[1] // 2, self.norm[0], 1,
+                           self.str_maps[0])
+                c2 = layer(ct, li, "StrConv_odd", pow_, ker[:, :, :, 1::2],
+                           w.bn_a[li][1::2], w.bn_b[li][1::2], w0,
+                           2 * raw[1], rb[0], rb[1] // 2, self.norm[0], 1,
+                           self.str_maps[2])
+                ct = ctx.add(c1, c2)
         li += 1
         tm["blc1to2"] = time.perf_counter() - t0
         t0 = time.perf_counter()

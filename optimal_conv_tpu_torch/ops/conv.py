@@ -18,7 +18,9 @@ fallback), and hands them to the pack as one tensor.
 
 Spans (``utils/tracing.py``): ``conv_bn`` a call of ``eval_conv_bn`` (a
 root when no span is open: a conv request), ``encode.kernel`` a
-``prep_ker`` and ``pack`` a ``conv_then_pack``.
+``prep_ker`` and ``pack`` a ``conv_then_pack``.  The counter
+``conv.pack.keyswitches`` adds the key-switch rows each pack runs
+(C - 1 for C plaintexts).
 """
 
 from __future__ import annotations
@@ -339,6 +341,8 @@ def _conv_pack(ctx: CkksContext, c0: torch.Tensor, c1: torch.Tensor,
     q0, qinv0 = ntt.tabs(ctx.q_rows(0))[:2]
     c_mont = mm.to_mont(ctx._const_col(c_int, 1), q01, qinv01, r2_01)
     steps = _pack_steps(p.log_n, max_ob, norm)
+    # the pack's key-switch rows: sum of k over the stages, C - 1
+    tracing.count("conv.pack.keyswitches", sum(s // norm for s, _, _ in steps))
     m0 = mm.mont_mul2(c0[None], pls, c_mont, q01, qinv01)
     m1 = mm.mont_mul2(c1[None], pls, c_mont, q01, qinv01)
     cur0, cur1 = ctx._rescale_pair(m0, m1, 1)     # [C, 1, N]

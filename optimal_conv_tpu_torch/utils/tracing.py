@@ -39,7 +39,9 @@ counters: ``keys.*`` (``ckks/context.py``), ``boot.builds`` /
 (``ckks/encoding.py``: pageable bytes uploaded to encode) and, beside
 it, ``encode.kernel.pts`` / ``encode.kernel.host_pts``
 (``ops/conv.prep_ker``: kernel plaintexts made by the batched pass on the
-device / one at a time on the host), ``graph.captures`` /
+device / one at a time on the host), ``conv.pack.keyswitches``
+(``ops/conv._conv_pack``: the key-switch rows of the conv's pack, C − 1
+a conv of C plaintexts), ``graph.captures`` /
 ``graph.replays`` / ``graph.eager`` (``ckks/graphs.py``: the
 bootstrapper's polynomial evaluations captured, replayed, or run with no
 graph).  The recorder serves one thread: the port drives a card from

@@ -777,6 +777,107 @@ def test_fast_runner_layers_on_card_equal_cpu(dev, monkeypatch):
     assert [c.level for c in got] == [1, 1]
 
 
+class _ConvDone(Exception):
+    pass
+
+
+def _wide3_calls(runner, image_ct, conv_only):
+    """``WideFastResNetRunner.infer`` at wide 3 from the ciphertext
+    `image_ct`, through its first layer and both ``StrConv_odd`` halves;
+    block 1's other layers hand on their input.  With `conv_only` each of
+    the three stops at its conv stage's end.  → the three outputs (conv
+    stages or whole layers) and the runner's sum of the halves (None with
+    `conv_only`)."""
+    from optimal_conv_tpu_torch.models import resnet as res
+    from optimal_conv_tpu_torch.models.plain import random_weights
+
+    cfg = runner.cfg
+    runner.encrypt_image = lambda image: image_ct
+    w = random_weights(3, cfg.depth, cfg.real_batch, fc_out=cfg.fc_out,
+                       in_ch=3, seed=8, scale=0.7, init_batch=cfg.init_batch)
+    layer, outs, kinds = res.eval_conv_bn_relu, [], []
+
+    def stop_at_conv(stage, value):
+        if stage == "conv":
+            raise _ConvDone(value)
+
+    def calls(*args):
+        kinds.append(args[18])
+        if len(kinds) > 1 and kinds[-1] != "StrConv_odd":
+            if kinds[-2] == "StrConv_odd":
+                raise _TwoLayers(args[2])
+            return args[2]
+        if not conv_only:
+            outs.append(layer(*args))
+            return outs[-1]
+        try:
+            layer(*args, debug_hook=stop_at_conv)
+        except _ConvDone as done:
+            outs.append(done.args[0])
+        return args[2]
+    res.eval_conv_bn_relu = calls
+    try:
+        with pytest.raises(_TwoLayers) as stop:
+            runner.infer(np.zeros((cfg.raw_in_wids[0],) * 2 + (3,)), w)
+    finally:
+        res.eval_conv_bn_relu = layer
+    assert [k for k in kinds if k != "Conv"] == ["StrConv_odd"] * 2 + [
+        "Conv_inside"]
+    return outs, None if conv_only else stop.value.args[0]
+
+
+@pytest.mark.parametrize("size", ["mini", "cell"])
+def test_wide3_layers_on_card_equal_cpu(dev, size):
+    """``WideFastResNetRunner`` at wide 3: the first layer (full-pack
+    ``Conv``) and both ``StrConv_odd`` halves on the card equal the
+    CPU's bit for bit, on the CPU context's keys.  At the ResNet-8
+    miniature (logN 10, real_batch (3, 6, 12)) the whole fused layers
+    and the runner's sum of the halves; at the cell's sizes (logN 16,
+    real_batch (48, 96, 192), init_batch 16: 64 kernel plaintexts a
+    conv) their conv stages, the CPU's bootstrap at logN 16 being out of
+    a test's reach."""
+    from optimal_conv_tpu_torch.models import resnet as res
+
+    if size == "mini":
+        p = mini_boot_params(10, n_relu=14)
+        cfg = res.ResNetConfig(ker_wid=3, depth=8, in_wids=(16, 8, 4),
+                               real_batch=(3, 6, 12), wide=3, init_batch=2,
+                               fc_out=4, init_pow=4.0, mid_pow=4.0,
+                               final_pow=4.0)
+        boot = dict(k_range=12.0, sin_deg=31, double_angle=3)
+    else:
+        p = boot_params(16)
+        cfg = res.ResNetConfig(depth=20, wide=3, real_batch=(48, 96, 192),
+                               init_batch=16)
+        boot = None
+    conv_only = size == "cell"
+    # whole keys: the card takes copies of the CPU's (about 3 min of the
+    # CPU's plain arithmetic at logN 16 for the three convs)
+    cpu = CkksContext(p, "cpu", seed=29, compress_keys=False)
+    card = CkksContext(p, dev, seed=29, compress_keys=False)
+    runners = [res.WideFastResNetRunner(c, cfg, boot) for c in (cpu, card)]
+    raw0 = cfg.raw_in_wids[0]
+    ct = runners[0].encrypt_image(
+        np.random.default_rng(31).uniform(-1, 1, (raw0, raw0, 3)))
+    want, want_sum = _wide3_calls(runners[0], ct, conv_only)
+    _share_keys(cpu, card)
+    held = len(card.switching_keys)
+    stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV)
+    before = [(s.launches, s.plain_calls) for s in stats]
+    got, got_sum = _wide3_calls(runners[1], _to_card(ct, dev), conv_only)
+    for s, (launches, plain) in zip(stats, before):
+        assert s.launches > launches and s.plain_calls == plain
+    assert len(card.switching_keys) == held, "the card made a key"
+    assert len(got) == len(want) == 3
+    for g, w_ in zip(got, want):
+        _same_ct(g, w_)
+    if conv_only:
+        assert [c.level for c in got] == [0, 0, 0]
+    else:
+        assert [c.level for c in got] == [1, 1, 1]
+        _same_ct(got_sum, want_sum)
+
+
 def test_conv_bn_bl_on_card_equals_cpu(dev):
     """One baseline conv (ops.baseline.eval_conv_bn_bl: nine hoisted
     rotations, the masked tap products, a rotated out-channel offset and
