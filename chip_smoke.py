@@ -209,9 +209,9 @@ from optimal_conv_tpu_torch.ckks import bootstrap as boot
 from optimal_conv_tpu_torch.ckks.context import GIB, CkksContext
 from optimal_conv_tpu_torch.ckks.params import boot_params
 from optimal_conv_tpu_torch.ckks.types import Ciphertext
-from optimal_conv_tpu_torch.core import (cuda_lib, d1_kernel, mont_kernel,
-                                         mxu_kernel, mxu_ntt, ntt_kernel, rns,
-                                         rns_kernel, threefry)
+from optimal_conv_tpu_torch.core import (cuda_lib, d1_kernel, mod_add_kernel,
+                                         mont_kernel, mxu_kernel, mxu_ntt,
+                                         ntt_kernel, rns, rns_kernel, threefry)
 from optimal_conv_tpu_torch.core import modmath as mm
 from optimal_conv_tpu_torch.core.ntt import (NttContext, _ntt_fwd, _ntt_inv,
                                              galois_perm_ntt, ntt_cross_plain,
@@ -242,8 +242,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "ref_conv_3_0_1.json")
 STATS = [mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV,
          d1_kernel.STATS, ntt_kernel.STATS_CROSS, mxu_kernel.STATS_FWD,
-         mxu_kernel.STATS_INV, rns_kernel.STATS]
-# K1, K2, K3, d1_regen and the basis extension: every path but sp's
+         mxu_kernel.STATS_INV, rns_kernel.STATS, mod_add_kernel.STATS]
+# K1, K2, K3, d1_regen, the basis extension and the additive kernel: every
+# path but sp's
 MAIN = STATS[:4] + STATS[7:]
 K123 = STATS[:3]
 SP = MAIN + [ntt_kernel.STATS_CROSS]   # the sp axis's: MAIN and the cross stage
@@ -1029,6 +1030,134 @@ def check_rns(dev, p, rng, card) -> dict:
     # no PyTorch call computes an RNS basis extension
     return dict(max_abs_err=err, wrapper_host_us=host_us, shapes=rows,
                 **rows[0])
+
+
+def _tops(q_top, lead, n, rng, dev) -> torch.Tensor:
+    """A top limb's coefficients [*lead, 1, n] in [0, q_top), with the
+    values around q_top // 2 that decide a centred correction."""
+    t = residues([q_top], lead, n, rng, dev)
+    h = q_top // 2
+    t[..., 2:6] = torch.tensor([h - 1, h, h + 1, h + 2], device=dev)
+    return t
+
+
+def check_mod_add(dev, p, rng, card) -> dict:
+    """The additive kernel's five forms against their plain twins on the
+    card, at the shapes the main path gives them, each one launch, no
+    plain call, equal residue for residue: add of [L, N] polynomials at
+    the top level, of an ``add_const`` column and of the conv pack's
+    [C, 1, N]; the key switch's digit-view sub [2, L+P, N] and the
+    rescale's sub; neg; each
+    giant's baby sum [nb, L, N] (single- and double-hoisted), the key
+    switch's digit sum [2, D, L+P, N] over its digit axis; the rescale's
+    centred correction on one ciphertext and on a batch, and ModRaise's;
+    an 8-byte path (a view offset by one element), an odd N and an odd
+    step.  Then the card ms and host µs of the kernel and of the PyTorch
+    chain it replaced (``mont_bench.mod_add_cases``)."""
+    n = p.n
+    lvl = p.max_level
+    q_idx, qp_idx = p.q_idx(lvl), p.qp_idx(lvl)
+    mq = [p.moduli[i] for i in q_idx]
+    mqp = [p.moduli[i] for i in qp_idx]
+    q = mm.limb_tables(mq, dev)[0]
+    qp = mm.limb_tables(mqp, dev)[0]
+    nd, nq = len(p.digits(lvl)), len(mq)
+    q_top = p.q_moduli[lvl]
+    top_mod = torch.tensor([q_top % m for m in mq[:-1]], dtype=torch.int64,
+                           device=dev)[:, None]
+    q0_mod = torch.tensor([p.q_moduli[0] % m for m in mq], dtype=torch.int64,
+                          device=dev)[:, None]
+    a, b = residues(mq, (), n, rng, dev), residues(mq, (), n, rng, dev)
+    col = b[:, 7:8].contiguous()                          # [L, 1]
+    pk = [residues(mq[:1], (8,), n, rng, dev) for _ in range(2)]
+    dig = residues(mqp, (2, nd), n, rng, dev)              # [2, D, L+P, N]
+    babies = residues(mq[:25], (16,), n, rng, dev)         # [nb, L, N]
+    dh = residues(mqp[:25] + mqp[len(mq):], (8,), n, rng, dev)
+    q25 = q[:25]
+    qdh = torch.cat([qp[:25], qp[len(mq):]])
+    lower = residues(mq[:-1], (), n, rng, dev)             # a rescale's red
+    tops = _tops(q_top, (), n, rng, dev)
+    blower = residues(mq[:-1], (4,), n, rng, dev)
+    btops = _tops(q_top, (4,), n, rng, dev)
+    e = residues(mq, (), n, rng, dev)                      # ModRaise's e
+    cc = _tops(p.q_moduli[0], (), n, rng, dev)
+    # one modulus on every row, so that rows shifted by an element stay
+    # canonical
+    same = residues([mq[0]] * 25, (16,), n, rng, dev)
+    skew = same.as_strided((8, 25, n), (25 * n + 1, n, 1))
+    q_one = q[:1].expand(25, 1)
+    wide = residues(mq, (), n + 2, rng, dev)[..., 1:n + 1]
+    odd = (a[..., :4097].contiguous(), b[..., :4097].contiguous())
+    cases = [
+        (f"add [{nq},N]", lambda: mm.add_mod(a, b, q),
+         lambda: mm.add_mod_plain(a, b, q)),
+        (f"add_const [{nq},N] + a [{nq},1] column", lambda: mm.add_mod(a, col, q),
+         lambda: mm.add_mod_plain(a, col, q)),
+        ("conv pack add [8,1,N]", lambda: mm.add_mod(pk[0], pk[1], q[:1]),
+         lambda: mm.add_mod_plain(pk[0], pk[1], q[:1])),
+        (f"key-switch sub of digit views [2,{len(mqp)},N]",
+         lambda: mm.sub_mod(dig[:, 0], dig[:, nd - 1], qp),
+         lambda: mm.sub_mod_plain(dig[:, 0], dig[:, nd - 1], qp)),
+        (f"rescale sub [2,{nq - 1},N]",
+         lambda: mm.sub_mod(dig[:, 1, :len(mq) - 1], lower, q[:-1]),
+         lambda: mm.sub_mod_plain(dig[:, 1, :len(mq) - 1], lower, q[:-1])),
+        (f"neg [{nq},N]", lambda: mm.neg_mod(a, q), lambda: mm.neg_mod_plain(a, q)),
+        ("baby sum [16,25,N]", lambda: mm.sum_mod(babies, q25),
+         lambda: mm.sum_mod_plain(babies, q25)),
+        (f"double-hoisted baby sum [8,{qdh.shape[0]},N]",
+         lambda: mm.sum_mod(dh, qdh), lambda: mm.sum_mod_plain(dh, qdh)),
+        (f"digit sum [2,{nd},{len(mqp)},N] over the digits",
+         lambda: mm.sum_mod(dig, qp, -3),
+         lambda: mm.sum_mod_plain(dig, qp, -3)),
+        ("an odd step: terms 25N + 1 elements apart",
+         lambda: mm.sum_mod(skew, q_one), lambda: mm.sum_mod_plain(skew, q_one)),
+        (f"rescale centred [{nq - 1},N] x top [1,N]",
+         lambda: mm.centred_sub(lower, tops, q_top // 2, top_mod, q[:-1]),
+         lambda: mm.centred_sub_plain(lower, tops, q_top // 2, top_mod,
+                                      q[:-1])),
+        (f"rescale centred, a batch [4,{nq - 1},N] x [4,1,N]",
+         lambda: mm.centred_sub(blower, btops, q_top // 2, top_mod, q[:-1]),
+         lambda: mm.centred_sub_plain(blower, btops, q_top // 2, top_mod,
+                                      q[:-1])),
+        (f"ModRaise centred [{nq},N] x [1,N] mod q0",
+         lambda: mm.centred_sub(e, cc, p.q_moduli[0] // 2, q0_mod, q),
+         lambda: mm.centred_sub_plain(e, cc, p.q_moduli[0] // 2, q0_mod, q)),
+        ("add, a view offset by one element (8-byte path)",
+         lambda: mm.add_mod(wide, b, q), lambda: mm.add_mod_plain(wide, b, q)),
+        ("sub, an odd N", lambda: mm.sub_mod(*odd, q),
+         lambda: mm.sub_mod_plain(*odd, q)),
+    ]
+    for what, run, plain in cases:
+        before = mod_add_kernel.STATS.launches, mod_add_kernel.STATS.plain_calls
+        got = run()
+        check((mod_add_kernel.STATS.launches, mod_add_kernel.STATS.plain_calls)
+              == (before[0] + 1, before[1]),
+              f"mod_add {what}: not one launch, or a plain call")
+        want = plain()
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"mod_add {what} differs from plain")
+    print(f"mod_add: {len(cases)} shapes equal to the plain twins, bit for bit")
+    rows = []
+    timed = mont_bench.mod_add_cases(p, rng, dev)
+    for case in timed:
+        ms = cuda_ms_cold(case["kernel"], dev, iters=30, warmup=5)
+        warm = cuda_ms(case["kernel"], dev, iters=50, warmup=5)
+        plain_ms = cuda_ms_cold(case["chain"], dev, iters=30, warmup=5)
+        bnd = card.bound(case["bytes"], 0)
+        rows.append(dict(shape=case["shape"], ms=ms, warm_l2_ms=warm,
+                         plain_ms=plain_ms, library_ms=None, **bnd))
+        print(f"mod_add {case['shape']}: {ms:.4f} ms (cold L2; back to back "
+              f"{warm:.4f}), the PyTorch chain {plain_ms:.4f} ms, bytes bound "
+              f"{bnd['bytes_ms']:.4f} ms; {ms / bnd['bytes_ms']:.2f}x the bound")
+    host_us = mont_bench.host_us_per_call(timed[0]["kernel"], dev)
+    chain_us = mont_bench.host_us_per_call(timed[0]["chain"], dev)
+    print(f"mod_add wrapper host time at {timed[0]['shape']}: {host_us:.2f} us "
+          f"per call, the chain's {chain_us:.2f}")
+    check(host_us <= chain_us, "the mod_add wrapper costs the host more than "
+          "the chain it replaced")
+    # no PyTorch call computes a modular sum in one pass
+    return dict(max_abs_err=0.0, wrapper_host_us=host_us, chain_host_us=chain_us,
+                shapes=rows, **rows[0])
 
 
 def main_path(dev, card):
@@ -3270,6 +3399,7 @@ def main() -> int:
     cross = check_cross(dev, p, rng, rates, k23)
     mxu = check_mxu(dev, p, rng, rates)
     ext = check_rns(dev, p, rng, rates)
+    madd = check_mod_add(dev, p, rng, rates)
 
     for s in STATS:
         s.reset()
@@ -3359,7 +3489,14 @@ def main() -> int:
                   replaces=None,
                   note="new, no TPU kernel; replaces XLA's fusion of "
                   "optimal_conv_tpu/core/rns.py (BasisExtender.extend, "
-                  "DigitExtender.extend_digits)", **ext)]
+                  "DigitExtender.extend_digits)", **ext),
+             dict(name="mod_add", route="cuda", source=src + "mod_add.cu",
+                  replaces=None,
+                  note="new, no TPU kernel; replaces XLA's fusion of "
+                  "optimal_conv_tpu/core/modmath.py's jnp.where chains "
+                  "(add_mod, sub_mod, neg_mod; the stack sums and the centred "
+                  "correction built from them); plain_ms is the PyTorch chain "
+                  "on the card", **madd)]
     for row in rows:
         name = row["name"]
         row["launches"] = sum(c["launches"][name] for c in paths.values())

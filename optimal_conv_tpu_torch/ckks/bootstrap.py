@@ -85,10 +85,7 @@ def mod_raise(ctx: CkksContext, ct: Ciphertext) -> Ciphertext:
 
     def lift(cc):                                      # [1, N] mod q0
         e = ext.extend(cc)                             # [lmax+1, N]
-        # residues are int64 below 2^62: the signed compare is the
-        # unsigned one
-        e = torch.where(cc > half, mm.sub_mod(e, q0_mod, q), e)
-        return ctx.ntt.ntt(e, idx)
+        return ctx.ntt.ntt(mm.centred_sub(e, cc, half, q0_mod, q), idx)
 
     cc = ctx._limb_coeffs(ct.c0, ct.c1, 0)
     return Ciphertext(lift(cc[0]), lift(cc[1]), level=lmax, scale=ct.scale)
@@ -236,22 +233,14 @@ class LinearTransform:
         return ctx.rescale(out) if self.rescale else out
 
 
-def _sum_rows(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Σ_i t[i] mod q, added in order i = 0, 1, …"""
-    acc = t[0]
-    for i in range(1, t.shape[0]):
-        acc = mm.add_mod(acc, t[i], q)
-    return acc
-
-
 def _inner(ctx: CkksContext, level: int, stacks, sel, pts):
     """One giant's inner sum, single-hoisted:
     (Σ_r c0_r·pt_r, Σ_r c1_r·pt_r) on Q_level (JAX: ``_build_inner``)."""
     q, qinv = ctx.ntt.tabs(ctx.q_rows(level))[:2]
     c0s, c1s = stacks if sel is None else (s.index_select(0, sel)
                                            for s in stacks)
-    return (_sum_rows(mm.mont_mul(c0s, pts, q, qinv), q),
-            _sum_rows(mm.mont_mul(c1s, pts, q, qinv), q))
+    return (mm.sum_mod(mm.mont_mul(c0s, pts, q, qinv), q),
+            mm.sum_mod(mm.mont_mul(c1s, pts, q, qinv), q))
 
 
 def _inner_dh(ctx: CkksContext, level: int, stacks, sel, pts):
@@ -271,9 +260,9 @@ def _inner_dh(ctx: CkksContext, level: int, stacks, sel, pts):
     nq = len(q_rows)
     c0s, a0s, a1s = stacks if sel is None else (s.index_select(0, sel)
                                                 for s in stacks)
-    sq = _sum_rows(mm.mont_mul(c0s, pts[:, :nq], q, qinv), q)
-    s0 = _sum_rows(mm.mont_mul(a0s, pts, qq, qqinv), qq)
-    s1 = _sum_rows(mm.mont_mul(a1s, pts, qq, qqinv), qq)
+    sq = mm.sum_mod(mm.mont_mul(c0s, pts[:, :nq], q, qinv), q)
+    s0 = mm.sum_mod(mm.mont_mul(a0s, pts, qq, qqinv), qq)
+    s1 = mm.sum_mod(mm.mont_mul(a1s, pts, qq, qqinv), qq)
     md0, md1 = ctx._mod_down_many((s0, s1), level)
     return mm.add_mod(sq, md0, q), md1
 

@@ -183,11 +183,15 @@ class _KeyCache(MutableMapping):
         self.d1_bytes += self._memo(swk)
         self._trim()
 
+    def holds(self, swk: SwitchingKey) -> bool:
+        """Whether the cache holds this key (not one it evicted)."""
+        return any(v is swk for v in self.d.values())
+
     def memoise(self, swk: SwitchingKey, d1: torch.Tensor):
         """Memoise a compressed key's regenerated d1 and charge the memo
         budget.  A key the cache no longer holds (evicted while its
         caller kept it) is not memoised: nothing would refund it."""
-        if swk.d1_cache is None and any(v is swk for v in self.d.values()):
+        if swk.d1_cache is None and self.holds(swk):
             swk.d1_cache = d1
             self.d1_bytes += self._memo(swk)
             self._trim()
@@ -292,7 +296,7 @@ class CkksContext:
         self.sk2_ntt = mm.mul_mod(self.sk_ntt, self.sk_ntt, q, qinv, r2)
         self._swk_cache = _KeyCache(*self._key_budgets)
         # the CUDA graphs read the keys of the old secret by address
-        self._graphs = GraphCache(self.GRAPHS)
+        self._graphs = GraphCache(self.GRAPHS, self._swk_cache)
 
     @property
     def switching_keys(self) -> _KeyCache:
@@ -600,10 +604,7 @@ class CkksContext:
         dig = digits if input_ntt else self.ntt.ntt(digits, qp)
         t0 = mm.mont_mul(dig, d0, q, qinv)
         t1 = mm.mont_mul(dig, d1, q, qinv)
-        acc0, acc1 = t0[..., 0, :, :], t1[..., 0, :, :]
-        for d in range(1, d0.shape[0]):
-            acc0 = mm.add_mod(acc0, t0[..., d, :, :], q)
-            acc1 = mm.add_mod(acc1, t1[..., d, :, :], q)
+        acc0, acc1 = mm.sum_mod(t0, q, -3), mm.sum_mod(t1, q, -3)
         if lazy:
             return acc0, acc1
         ks0, ks1 = self._mod_down_many((acc0, acc1), level)
@@ -760,7 +761,7 @@ class CkksContext:
                                     dtype=torch.int64, device=self.device)[:, None]
             self._pt_cache[key] = qtop_mod
         red = mm.mont_mul(t, r1, q, qinv)                       # t mod q_i
-        red = torch.where(t > q_top // 2, mm.sub_mod(red, qtop_mod, q), red)
+        red = mm.centred_sub(red, t, q_top // 2, qtop_mod, q)
         red_ntt = self.ntt.ntt(red, idx)
         return mm.mont_mul(mm.sub_mod(c, red_ntt, q),
                            self.tables.qlast_inv_rows(lvl, idx), q, qinv)

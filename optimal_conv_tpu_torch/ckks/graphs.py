@@ -30,7 +30,12 @@ buffer; the pool keeps one capture's working set as reserved memory.
 A graph reads the switching keys of its capture by address, so its
 record holds them: ``CkksContext.swk_d1`` hands each key it serves to
 ``hold``, which keeps it while a capture runs.  An eviction by the key
-cache then cannot free memory a graph still reads.  Graphs run where the
+cache then cannot free memory a graph still reads.  A capture may not
+make a key: a key made there would live in the graphs' pool, and its
+upload of host tables cannot be captured.  So the first call's eager
+run notes the keys it reads, and where the key cache no longer holds
+one of them at its end (a cache too small for the keys of one call),
+the call's key is never captured: its calls stay eager.  Graphs run where the
 ciphertext is a CUDA tensor and the context's class allows them
 (``CkksContext.GRAPHS``; the sharded contexts run collectives and stay
 eager).
@@ -82,19 +87,25 @@ class GraphCache:
     """{key: Graph} of one context; `enabled` is the context's
     ``GRAPHS``."""
 
-    def __init__(self, enabled: bool):
+    def __init__(self, enabled: bool, keys=None):
         self.enabled = enabled
+        self.keys = keys                     # the context's key cache
         self.graphs: dict = {}
+        self.eager: set = set()              # keys whose calls stay eager
         self.pool = None
         self.buf: torch.Tensor | None = None
         self._held: list | None = None       # the keys read, while capturing
+        self._seen: list | None = None       # weakly, in a first eager run
         self._owners: dict = {}              # id → finalizer of an owner
 
     def hold(self, swk, d1) -> None:
         """A switching key and its d1 served while a capture runs are kept
-        by the graph."""
+        by the graph; one served in a first call's eager run is noted by a
+        weak reference, which keeps nothing the key cache drops."""
         if self._held is not None:
             self._held.append((swk, d1))
+        if self._seen is not None:
+            self._seen.append(weakref.ref(swk))
 
     def serves(self, ct: Ciphertext) -> bool:
         """Whether graphs serve calls on ct: a CUDA tensor, and a context
@@ -115,7 +126,20 @@ class GraphCache:
             tracing.count("graph.replays")
             return g.replay(ct)
         tracing.count("graph.eager")
-        want = body(ct)
+        if key in self.eager:
+            return body(ct)
+        self._seen = []
+        try:
+            want = body(ct)
+        finally:
+            seen, self._seen = self._seen, None
+        if self.keys is not None and not all(
+                ref() is not None and self.keys.holds(ref()) for ref in seen):
+            # the keys of one call do not fit the key cache: a capture
+            # would make keys again
+            self.eager.add(key)
+            self._owned_by(owner)
+            return want
         g = self._capture(ct, body, want)
         got = g.replay(ct)
         if ((got.level, got.scale) != (want.level, want.scale)
@@ -125,10 +149,14 @@ class GraphCache:
                                "eager result")
         tracing.count("graph.captures")
         self.graphs[key] = g
+        self._owned_by(owner)
+        return got
+
+    def _owned_by(self, owner) -> None:
+        """The keys of `owner` go when it does."""
         if owner is not None and id(owner) not in self._owners:
             self._owners[id(owner)] = weakref.finalize(owner, self._drop_id,
                                                        id(owner))
-        return got
 
     def drop(self, owner) -> None:
         """Drop the graphs of `owner`."""
@@ -141,6 +169,7 @@ class GraphCache:
         self._owners.pop(oid, None)
         for key in [k for k in self.graphs if k[0] == oid]:
             del self.graphs[key]
+        self.eager = {k for k in self.eager if k[0] != oid}
 
     def _capture(self, ct: Ciphertext, body, want: Ciphertext) -> Graph:
         """Capture body on views of the buffer shaped as ct; its output is

@@ -143,6 +143,9 @@ def _bind(dll: ctypes.CDLL) -> ctypes.CDLL:
     # out, in, the constant table, the launch description, stream
     dll.optconv_rns_extend.argtypes = [p] * 5
     dll.optconv_rns_extend.restype = i32
+    # out, a, b, q, c, the launch description, stream
+    dll.optconv_mod_add.argtypes = [p] * 7
+    dll.optconv_mod_add.restype = i32
     return dll
 
 

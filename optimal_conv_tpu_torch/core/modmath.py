@@ -12,7 +12,11 @@ as uint64 products do, so the bits agree with the JAX package's.
 device: on the CPU they run the plain versions below (schoolbook 32-bit
 halves, as the JAX package), on a CUDA tensor they launch the
 hand-written kernel of ``csrc/mont_mul.cu``
-(``mont_kernel.mont_mul_cuda``) or raise.
+(``mont_kernel.mont_mul_cuda``) or raise.  The additive operations
+(``add_mod``, ``sub_mod``, ``neg_mod``, the stack sum ``sum_mod`` and the
+centred correction ``centred_sub``) dispatch the same way, to their
+``*_plain`` versions or to one launch of ``csrc/mod_add.cu``
+(``mod_add_kernel``).
 
 Host-side helpers (prime generation, primitive roots, Montgomery
 constants, CRT) work on Python ints and numpy arrays.
@@ -23,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import mont_kernel
+from . import mod_add_kernel, mont_kernel
 
 _M32 = 0xFFFFFFFF
 _M64 = 0xFFFFFFFFFFFFFFFF
@@ -94,20 +98,83 @@ def mont_mul2(a: torch.Tensor, b_mont: torch.Tensor, c_mont: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# add / sub / neg (inputs canonically reduced)
+# add / sub / neg / sum / centred correction (inputs canonically reduced)
 # ---------------------------------------------------------------------------
 
-def add_mod(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def add_mod_plain(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor
+                  ) -> torch.Tensor:
+    mod_add_kernel.STATS.plain_calls += 1
     s = a + b                                   # < 2^63 for q < 2^62
     return torch.where(s >= q, s - q, s)
 
 
-def sub_mod(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def sub_mod_plain(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor
+                  ) -> torch.Tensor:
+    mod_add_kernel.STATS.plain_calls += 1
     return torch.where(a >= b, a - b, a + q - b)
 
 
-def neg_mod(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def neg_mod_plain(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    mod_add_kernel.STATS.plain_calls += 1
     return torch.where(a == 0, a, q - a)
+
+
+def sum_mod_plain(t: torch.Tensor, q: torch.Tensor, dim: int = 0
+                  ) -> torch.Tensor:
+    """Σ_i t.select(dim, i) mod q, added in order i = 0, 1, …"""
+    acc = t.select(dim, 0)
+    for i in range(1, t.shape[dim]):
+        acc = add_mod_plain(acc, t.select(dim, i), q)
+    return acc
+
+
+def centred_sub_plain(a: torch.Tensor, b: torch.Tensor, half: int,
+                      c: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    # residues are int64 below 2^62: the signed compare is the unsigned one
+    return torch.where(b > half, sub_mod_plain(a, c, q), a)
+
+
+def add_mod(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """a + b mod q.  CPU tensors take the plain version; CUDA tensors the
+    kernel of ``csrc/mod_add.cu``, as do the four below."""
+    if a.device.type == "cpu":
+        return add_mod_plain(a, b, q)
+    return mod_add_kernel.add_mod_cuda(a, b, q)
+
+
+def sub_mod(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """a − b mod q."""
+    if a.device.type == "cpu":
+        return sub_mod_plain(a, b, q)
+    return mod_add_kernel.sub_mod_cuda(a, b, q)
+
+
+def neg_mod(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """−a mod q."""
+    if a.device.type == "cpu":
+        return neg_mod_plain(a, q)
+    return mod_add_kernel.neg_mod_cuda(a, q)
+
+
+def sum_mod(t: torch.Tensor, q: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Σ_i t.select(dim, i) mod q over a stack's axis `dim` (not the last):
+    on the card every term read once in one pass.  A single term is
+    returned as the view it is."""
+    if t.device.type == "cpu":
+        return sum_mod_plain(t, q, dim)
+    if t.shape[dim] == 1:
+        return t.select(dim, 0)
+    return mod_add_kernel.sum_mod_cuda(t, q, dim)
+
+
+def centred_sub(a: torch.Tensor, b: torch.Tensor, half: int, c: torch.Tensor,
+                q: torch.Tensor) -> torch.Tensor:
+    """a − c mod q where b > half, else a: the centred correction of a
+    rescale or a ModRaise, with b [..., 1, N] the top limb's coefficients
+    (half = q_top // 2) and c = q_top mod q a column."""
+    if a.device.type == "cpu":
+        return centred_sub_plain(a, b, half, c, q)
+    return mod_add_kernel.centred_sub_cuda(a, b, half, c, q)
 
 
 def mul_mod(a, b, q, qinv, r2):

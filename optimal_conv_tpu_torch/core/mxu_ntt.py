@@ -245,11 +245,11 @@ def mod_matmul_plain(w, x, q, qinv, r1, c40, c80) -> torch.Tensor:
     groups = [g.to(torch.int64) for g in groups]
     out = mm.mont_mul_plain(_part(groups[0:5]), r1, q, qinv)
     if len(groups) > 5:
-        out = mm.add_mod(out, mm.mont_mul_plain(_part(groups[5:10]), c40, q,
-                                                qinv), q)
+        out = mm.add_mod_plain(out, mm.mont_mul_plain(_part(groups[5:10]), c40,
+                                                      q, qinv), q)
     if len(groups) > 10:
-        out = mm.add_mod(out, mm.mont_mul_plain(_part(groups[10:15]), c80, q,
-                                                qinv), q)
+        out = mm.add_mod_plain(out, mm.mont_mul_plain(_part(groups[10:15]),
+                                                      c80, q, qinv), q)
     return out
 
 

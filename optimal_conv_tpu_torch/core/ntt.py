@@ -217,8 +217,8 @@ def _ntt_fwd(a, psi_br, q, qinv, log_n):
         blk = a.reshape(lead + (m, 2, t))
         u = blk[..., 0, :]
         v = mm.mont_mul_plain(blk[..., 1, :], s, q3, qi3)
-        a = torch.stack([mm.add_mod(u, v, q3), mm.sub_mod(u, v, q3)],
-                        dim=-2).reshape(shape)
+        a = torch.stack([mm.add_mod_plain(u, v, q3),
+                         mm.sub_mod_plain(u, v, q3)], dim=-2).reshape(shape)
         m *= 2
     return a
 
@@ -236,9 +236,9 @@ def _ntt_inv(a, ipsi_br, n_inv, q, qinv, log_n):
         blk = a.reshape(lead + (h, 2, t))
         u = blk[..., 0, :]
         v = blk[..., 1, :]
-        a = torch.stack([mm.add_mod(u, v, q3),
-                         mm.mont_mul_plain(mm.sub_mod(u, v, q3), s, q3, qi3)],
-                        dim=-2).reshape(shape)
+        a = torch.stack([mm.add_mod_plain(u, v, q3),
+                         mm.mont_mul_plain(mm.sub_mod_plain(u, v, q3), s, q3,
+                                           qi3)], dim=-2).reshape(shape)
         t *= 2
         m = h
     return mm.mont_mul_plain(a, n_inv, q, qinv)
@@ -254,11 +254,12 @@ def ntt_cross_plain(mine, theirs, w, q, qinv, upper: bool, inverse: bool):
     ntt_kernel.STATS_CROSS.plain_calls += 1
     if not inverse:
         if upper:
-            return mm.sub_mod(theirs, mm.mont_mul_plain(mine, w, q, qinv), q)
-        return mm.add_mod(mine, mm.mont_mul_plain(theirs, w, q, qinv), q)
+            return mm.sub_mod_plain(theirs, mm.mont_mul_plain(mine, w, q, qinv),
+                                    q)
+        return mm.add_mod_plain(mine, mm.mont_mul_plain(theirs, w, q, qinv), q)
     if upper:
-        return mm.mont_mul_plain(mm.sub_mod(theirs, mine, q), w, q, qinv)
-    return mm.add_mod(mine, theirs, q)
+        return mm.mont_mul_plain(mm.sub_mod_plain(theirs, mine, q), w, q, qinv)
+    return mm.add_mod_plain(mine, theirs, q)
 
 
 # ---------------------------------------------------------------------------

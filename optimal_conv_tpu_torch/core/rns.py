@@ -99,9 +99,9 @@ class BasisExtender:
         for j in range(k):
             t = mm.mont_mul(y[..., j:j + 1, :], self.qhat_mont[j], self.dq,
                             self.dqinv)                           # [..., R, N]
-            acc = t if acc is None else mm.add_mod(acc, t, self.dq)
+            acc = t if acc is None else mm.add_mod_plain(acc, t, self.dq)
         vq = self.qmod_table[:, v].movedim(0, -2)                 # [..., R, N]
-        return mm.sub_mod(acc, vq, self.dq)
+        return mm.sub_mod_plain(acc, vq, self.dq)
 
 
 class DigitExtender:
@@ -181,10 +181,10 @@ class DigitExtender:
         for j in range(self.alpha):
             t = mm.mont_mul(y[..., j:j + 1, :], self.qhat_mont[j], self.dq,
                             self.dqinv)                     # [..., beta, R, N]
-            acc = t if acc is None else mm.add_mod(acc, t, self.dq)
+            acc = t if acc is None else mm.add_mod_plain(acc, t, self.dq)
         # v·Q mod r_i: gather from the [beta, R, alpha+1] table
         tab = self.qmod_table
         beta_i = torch.arange(self.beta, device=c.device)[:, None, None]
         r_i = torch.arange(self.R, device=c.device)[None, :, None]
         vq = tab[beta_i, r_i, v[..., :, None, :]]          # [..., beta, R, N]
-        return mm.sub_mod(acc, vq, self.dq)
+        return mm.sub_mod_plain(acc, vq, self.dq)

@@ -94,7 +94,7 @@ def uniform_mont_plain(seed: int, beta: int, q: torch.Tensor,
     shape = (beta, nqp_local, n)
     hi = (w[0].bitwise_left_shift_(32) | w[1]).view(shape)   # wraps like uint64
     lo = (w[2].bitwise_left_shift_(32) | w[3]).view(shape)
-    return mm.add_mod(mm.mont_mul_plain(hi, r2, q, qinv),
+    return mm.add_mod_plain(mm.mont_mul_plain(hi, r2, q, qinv),
                       mm.mont_mul_plain(lo, r1, q, qinv), q)
 
 

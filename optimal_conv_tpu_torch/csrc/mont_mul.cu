@@ -16,11 +16,9 @@
 //     Montgomery constant or a ciphertext shared by many plaintexts is
 //     never expanded in memory), and the chained product never writes
 //     its intermediate;
-//   * one block owns one tile of one row.  The row comes from
-//     blockIdx.y/z without a division; thread 0 turns it into the five
-//     operands' offsets (32-bit divisions, one per row dim beyond the
-//     first) and hands them over in shared memory; q, qinv, c and a
-//     column-scalar operand are loaded once per thread per tile;
+//   * one block owns one tile of one row (row_index.cuh, which
+//     mod_add.cu shares); q, qinv, c and a column-scalar operand are
+//     loaded once per thread per tile;
 //   * a thread handles two independent 16-byte vectors (ulonglong2)
 //     per operand, neighbouring threads on neighbouring addresses, all
 //     loads issued before the arithmetic.  On the H100 small tiles won
@@ -38,8 +36,9 @@
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
+#include "row_index.cuh"
 
-constexpr int kMaxDims = 4;
+constexpr int kMaxDims = optconv::kRowDims;
 constexpr int kOps = 5;            // a, b, q, qinv, c
 constexpr int kMaxThreads = 256;
 constexpr int kPerThread = 2;      // units a thread; mont_kernel.PER_THREAD
@@ -57,25 +56,9 @@ struct OptconvMontLaunch {
 namespace {
 
 using Launch = OptconvMontLaunch;
-
-struct RowIndex {
-  int nd;
-  unsigned size[kMaxDims];
-  long long stride[kOps][kMaxDims];
-};
-
-__device__ __forceinline__ uint64_t load(const uint64_t* p) {
-  return __ldg(reinterpret_cast<const unsigned long long*>(p));
-}
-__device__ __forceinline__ ulonglong2 load(const ulonglong2* p) {
-  return __ldg(p);
-}
-
-__device__ __forceinline__ void splat(uint64_t& d, uint64_t v) { d = v; }
-__device__ __forceinline__ void splat(ulonglong2& d, uint64_t v) {
-  d.x = v;
-  d.y = v;
-}
+using RowIndex = optconv::RowIndex<kOps>;
+using optconv::load;
+using optconv::splat;
 
 // mont(x, y), or mont(mont(x, y), c): the first product stays lazily
 // reduced (below 2q, inside mont_mul's 4q input range), the last one is
@@ -97,9 +80,6 @@ __device__ __forceinline__ ulonglong2 product(ulonglong2 x, ulonglong2 y,
   return r;
 }
 
-template <bool VEC> struct Unit { using type = uint64_t; };
-template <> struct Unit<true> { using type = ulonglong2; };
-
 // One block: one tile of blockDim.x * kPerThread units (vectors of two
 // elements if VEC, else elements) of one row.
 template <bool VEC, bool CHAINED>
@@ -110,27 +90,11 @@ mont_mul_kernel(uint64_t* __restrict__ out, const uint64_t* __restrict__ a,
                 const uint64_t* __restrict__ c, unsigned rows, unsigned n,
                 int a_col, int b_col, RowIndex ix) {
   constexpr int V = kPerThread;
-  using T = typename Unit<VEC>::type;
+  using T = typename optconv::Unit<VEC>::type;
   __shared__ long long s_off[kOps];
   const unsigned row = blockIdx.z * gridDim.y + blockIdx.y;
   if (row >= rows) return;               // the whole block, before the barrier
-  if (threadIdx.x == 0) {
-    long long off[kOps] = {0, 0, 0, 0, 0};
-    unsigned r = row;
-#pragma unroll
-    for (int d = kMaxDims - 1; d > 0; --d) {
-      if (d < ix.nd) {
-        const unsigned hi = r / ix.size[d];
-        const unsigned lo = r - hi * ix.size[d];
-#pragma unroll
-        for (int k = 0; k < kOps; ++k) off[k] += (long long)lo * ix.stride[k][d];
-        r = hi;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kOps; ++k)
-      s_off[k] = off[k] + (long long)r * ix.stride[k][0];
-  }
+  if (threadIdx.x == 0) optconv::row_offsets(ix, row, s_off);
   __syncthreads();
   const uint64_t* arow = a + s_off[0];
   const uint64_t* brow = b + s_off[1];
@@ -178,27 +142,8 @@ int launch_v(const Launch& L, dim3 grid, cudaStream_t s, uint64_t* out,
 extern "C" int optconv_mont_mul(void* out, const void* a, const void* b,
                                 const void* q, const void* qinv, const void* c,
                                 const Launch* L, void* stream) {
-  const long long lim = 1ll << 31;
-  if (L->nd < 0 || L->nd > kMaxDims || L->n < 1 || L->n >= lim ||
-      L->rows < 1 || L->rows >= lim || (L->vec && (L->n & 1)) ||
-      L->threads < 32 || L->threads > kMaxThreads || (L->threads & 31) ||
-      L->gx < 1 || L->gy < 1 || L->gy > 65535 || L->gz < 1 || L->gz > 65535 ||
-      (long long)L->gy * L->gz < L->rows)
-    return (int)cudaErrorInvalidValue;
   RowIndex ix;
-  ix.nd = L->nd;
-  long long rows = 1;
-  for (int d = 0; d < kMaxDims; ++d) {
-    const long long size = d < L->nd ? L->size[d] : 1;
-    if (size < 1 || size >= lim) return (int)cudaErrorInvalidValue;
-    rows *= size;
-    ix.size[d] = (unsigned)size;
-    for (int k = 0; k < kOps; ++k)
-      ix.stride[k][d] = d < L->nd ? L->stride[k][d] : 0;
-  }
-  const long long units = L->vec ? L->n / 2 : L->n;
-  const long long tile = (long long)L->threads * kPerThread;
-  if (rows != L->rows || (long long)L->gx * tile < units)
+  if (!optconv::row_index(*L, kMaxThreads, kPerThread, &ix))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)L->gx, (unsigned)L->gy, (unsigned)L->gz);
   const cudaStream_t s = (cudaStream_t)stream;

@@ -1,4 +1,5 @@
-"""K1 (the Montgomery product) on the card, at the main path's shapes.
+"""K1 (the Montgomery product) and the additive kernel on the card, at the
+main path's shapes.
 
     python -m optimal_conv_tpu_torch.utils.mont_bench [--ab]
 
@@ -8,7 +9,13 @@ shape (the conv's at 16²×256, a level-15 ct × ct product's and the
 bootstrap transforms' at levels 27, 3 and 2) the
 kernel's time beside the time its bytes need at 3.35 TB/s (each distinct
 input byte read once, each output byte written once),
-and the wrapper's host microseconds per call at [2, N].
+and the wrapper's host microseconds per call at [2, N].  Then the
+additive kernel of ``csrc/mod_add.cu`` beside the PyTorch chain it
+replaced (``modmath``'s plain versions, on the card) at [29, N] add,
+[2, 33, N] sub of strided digit views and a 16-term sum: each one's card
+ms with the L2 flushed before each call (back to back beside it, which
+the host's enqueue can bound) against the bytes bound, and the host µs a
+call of both at [29, N].
 ``chip_smoke.py`` times the same cases.  With ``--ab`` it also times them,
 and [1, N], under block sizes of 256, 128 and 64 threads, each four times
 (two passes down the list and back up), in this one process on this one
@@ -152,18 +159,22 @@ def time_case(case, dev) -> dict:
     return dict(ms=ms, warm_l2_ms=warm)
 
 
-def host_us_per_call(fn, dev, calls: int = 1000) -> float:
+def host_us_per_call(fn, dev, calls: int = 1000, batch: int = 10) -> float:
     """Host microseconds of one call of fn(): the wall time of `calls`
-    back-to-back calls with no synchronise between them, over `calls`."""
+    calls over `calls`, enqueued `batch` at a time on an idle card (a
+    synchronise between batches, outside the timed region), so the host
+    never waits for a full launch queue however long the device work."""
     for _ in range(20):
         fn()
+    dt = 0.0
+    for _ in range(calls // batch):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        dt += time.perf_counter() - t0
     torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize(dev)
-    return dt / calls * 1e6
+    return dt / (calls // batch * batch) * 1e6
 
 
 # the block sizes timed by --ab, each of mont_kernel.PER_THREAD units a thread
@@ -189,6 +200,34 @@ def tile_ab(cases, dev, passes: int = 2) -> None:
     for (threads, shape), ms in times.items():
         print(f"A/B tile {threads}x{mont_kernel.PER_THREAD} {shape}: "
               + " / ".join(f"{t:.4f}" for t in ms) + " ms")
+
+
+def mod_add_cases(p, rng, dev) -> list[dict]:
+    """The additive kernel's timed shapes, each with the kernel's call and
+    the PyTorch chain it replaced (the plain version on the card), and
+    the bytes one pass needs: the add of two [29, N] polynomials, the sub
+    of two digit views t0[:, d] of a [2, 3, 33, N] key-switch product
+    (strided rows) and one giant's inner sum over 16 babies of [8, N]."""
+    n = p.n
+    m29, m33 = p.moduli[:29], p.moduli[:33]
+    q29 = mm.limb_tables(m29, dev)[0]
+    q33 = mm.limb_tables(m33, dev)[0]
+    a = residues(m29, (), n, rng, dev)
+    b = residues(m29, (), n, rng, dev)
+    t0 = residues(m33, (2, 3), n, rng, dev)
+    st = residues(m29[:8], (16,), n, rng, dev)
+    return [
+        dict(shape="[29,65536] add", kernel=lambda: mm.add_mod(a, b, q29),
+             chain=lambda: mm.add_mod_plain(a, b, q29), bytes=3 * a.numel() * 8),
+        dict(shape="[2,33,65536] sub of digit views",
+             kernel=lambda: mm.sub_mod(t0[:, 0], t0[:, 2], q33),
+             chain=lambda: mm.sub_mod_plain(t0[:, 0], t0[:, 2], q33),
+             bytes=3 * t0[:, 0].numel() * 8),
+        dict(shape="[16,8,65536] sum over 16 terms",
+             kernel=lambda: mm.sum_mod(st, q29[:8]),
+             chain=lambda: mm.sum_mod_plain(st, q29[:8]),
+             bytes=(16 + 1) * st[0].numel() * 8),
+    ]
 
 
 def small_cases(p, rng, dev) -> list[dict]:
@@ -223,6 +262,21 @@ def main(argv=None) -> int:
     small = timed_cases(p, rng, dev)[-1]
     print(f"wrapper host time at {small['shape']}: "
           f"{host_us_per_call(lambda: run_case(small), dev):.2f} us per call")
+    adds = mod_add_cases(p, rng, dev)
+    for case in adds:
+        bound = case["bytes"] / HBM_BYTES_PER_S * 1e3
+        ms = {k: (cuda_ms_cold(case[k], dev, iters=30, warmup=5),
+                  cuda_ms(case[k], dev, iters=50, warmup=5))
+              for k in ("kernel", "chain")}
+        print(f"mod_add {case['shape']}: " + ", ".join(
+            f"{k} {c:.4f} ms (cold L2; back to back {w:.4f})"
+            for k, (c, w) in ms.items()) + f", bytes bound {bound:.4f} ms")
+    us = {"kernel": [], "chain": []}
+    for k in ("chain", "kernel", "kernel", "chain"):
+        us[k].append(host_us_per_call(adds[0][k], dev))
+    print(f"host time at {adds[0]['shape']}: " + ", ".join(
+        f"{k} " + " / ".join(f"{u:.2f}" for u in us[k]) for k in us)
+        + " us per call")
     if "--ab" in argv:
         tile_ab(timed_cases(p, rng, dev)[:4] + small_cases(p, rng, dev), dev)
     return 0

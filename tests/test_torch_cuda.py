@@ -17,7 +17,8 @@ import torch
 from optimal_conv_tpu_torch.ckks.context import CkksContext, SwitchingKey
 from optimal_conv_tpu_torch.ckks.params import boot_params, mini_boot_params
 from optimal_conv_tpu_torch.core import modmath as mm
-from optimal_conv_tpu_torch.core import d1_kernel, mont_kernel, ntt_kernel
+from optimal_conv_tpu_torch.core import d1_kernel, mod_add_kernel, mont_kernel
+from optimal_conv_tpu_torch.core import ntt_kernel
 from optimal_conv_tpu_torch.core import mxu_kernel, mxu_ntt, rns, rns_kernel
 from optimal_conv_tpu_torch.core import threefry
 from optimal_conv_tpu_torch.core.ntt import (NttContext, _ntt_fwd, _ntt_inv,
@@ -127,6 +128,149 @@ def test_mont_mul2_kernel_equals_plain(dev, case):
     assert mont_kernel.STATS.launches == 1
     assert mont_kernel.STATS.plain_calls == 0
     assert torch.equal(got, mm.mont_mul2_plain(a, b, c, q, qinv))
+
+
+def _mod_add_case(case, dev):
+    """One call pattern of the additive kernel at the main path's widths:
+    (the ``modmath`` function, its plain version), the arguments, and
+    whether the plan should take 16-byte accesses (None: no plan to
+    check)."""
+    rng = np.random.default_rng(3)
+    p = boot_params(16)
+    n = p.n
+    qs = p.q_moduli
+    m29, m33 = p.moduli[:29], p.moduli[:33]
+    q29 = mm.limb_tables(m29, dev)[0]
+    q33 = mm.limb_tables(m33, dev)[0]
+    q1 = q29[:1]
+
+    def col(q):                          # a [L, 1] column of residues
+        return torch.tensor([[int(rng.integers(0, m))] for m in
+                             q[:, 0].tolist()], dtype=torch.int64, device=dev)
+
+    def top(shape, qt):                  # a top limb's coefficients
+        t = torch.from_numpy(rng.integers(0, qt, size=shape, dtype=np.int64))
+        t.view(-1)[:3] = torch.tensor([qt // 2, qt // 2 + 1, qt - 1])
+        return t.to(dev)
+
+    add = (mm.add_mod, mm.add_mod_plain)
+    sub = (mm.sub_mod, mm.sub_mod_plain)
+    neg = (mm.neg_mod, mm.neg_mod_plain)
+    summ = (mm.sum_mod, mm.sum_mod_plain)
+    centred = (mm.centred_sub, mm.centred_sub_plain)
+    a = _residues(m29, (29, n), rng, dev)
+    b = _residues(m29, (29, n), rng, dev)
+    if case == "add_29":                 # two [29, N] polynomials
+        return add, (a, b, q29), True
+    if case == "add_col":                # add_const's cached column
+        return add, (a, col(q29), q29), True
+    if case == "sub_col":                # ModRaise: e − q0 mod q_i
+        return sub, (a, col(q29), q29), True
+    if case == "sub_digit_views":        # _ks_core's t0[..., d, :, :]
+        t0 = _residues(m33, (2, 3, 33, n), rng, dev)
+        return sub, (t0[:, 0], t0[:, 2], q33), True
+    if case == "neg_29":
+        return neg, (a, q29), True
+    if case == "add_pack":               # the conv pack: [C, 1, N] on limb 0
+        return add, (_residues(m29[:1], (16, 1, n), rng, dev),
+                     _residues(m29[:1], (16, 1, n), rng, dev), q1), True
+    if case == "sum_babies":             # one giant's inner sum on Q·P
+        return summ, (_residues(m33, (8, 33, n), rng, dev), q33, 0), True
+    if case == "sum_16":                 # a 16-term stack
+        t = _residues(m29[:4], (16, 4, n), rng, dev)
+        t[..., 2] = (q29[:4] - 1).T      # every addition wraps
+        return summ, (t, q29[:4], 0), True
+    if case == "sum_digits":             # _ks_core's digit sum, a lead dim
+        return summ, (_residues(m33[:21], (2, 4, 21, n), rng, dev), q33[:21],
+                      -3), True
+    if case == "centred_rescale":        # the rescale's top limb, 27 limbs
+        qt = int(qs[27])
+        return centred, (a[:27], top((1, n), qt), qt // 2, col(q29[:27]),
+                         q29[:27]), True
+    if case == "centred_batch":          # C ciphertexts [C, 1, N], their tops
+        qt = int(qs[1])
+        return centred, (_residues(m29[:1], (16, 1, n), rng, dev),
+                         top((16, 1, n), qt), qt // 2, col(q1), q1), True
+    if case == "scalar_view":            # offset by one element: 8-byte path
+        wide = _residues(m29[:6], (6, 4098), rng, dev)
+        return sub, (wide[:, 1:4097], wide[:, :4096].contiguous(), q29[:6]), \
+            False
+    if case == "odd_n":
+        return add, (a[:6, :1031].contiguous(), b[:6, :1031].contiguous(),
+                     q29[:6]), False
+    if case == "odd_step_sum":           # terms 4097 elements apart
+        flat = _residues(m29[:1], (1, 5 * 4097), rng, dev).reshape(-1)
+        t = flat.as_strided((5, 1, 4096), (4097, 4096, 1))
+        return summ, (t, q1, 0), False
+    if case == "empty":
+        return add, (a[:, :0], b[:, :0], q29), None
+    if case == "many_rows":              # more rows than one grid dim holds
+        return neg, (_residues(m29[:1], (70000, 1, 4), rng, dev), q1), True
+    assert case == "many_dims"           # more unmergeable row dims than four
+    a7 = _residues(m29[:2], (2, 1, 2, 1, 2, 1, 2, 64), rng, dev)
+    b7 = _residues(m29[:2], (1, 2, 1, 2, 1, 2, 2, 64), rng, dev)
+    return add, (a7, b7, q29[:2]), None
+
+
+MOD_ADD_CASES = ["add_29", "add_col", "sub_col", "sub_digit_views", "neg_29",
+                 "add_pack", "sum_babies", "sum_16", "sum_digits",
+                 "centred_rescale", "centred_batch", "scalar_view", "odd_n",
+                 "odd_step_sum", "empty", "many_rows", "many_dims"]
+
+
+def _mod_add_plan(fn, args):
+    """The plan the wrapper takes for one call of a ``modmath`` form."""
+    ak = mod_add_kernel
+    if fn is mm.sum_mod:
+        t, q, dim = args
+        dim %= t.dim()
+        key = ak.describe(ak.SUM, (t.select(dim, 0), q), t.shape[dim],
+                          t.stride(dim))
+    elif fn is mm.centred_sub:
+        a, b, half, c, q = args
+        key = ak.describe(ak.CENTRED, (a, b, q, c), half=half)
+    else:
+        op = {mm.add_mod: ak.ADD, mm.sub_mod: ak.SUB, mm.neg_mod: ak.NEG}[fn]
+        key = ak.describe(op, args)
+    return ak.plan(*key)
+
+
+@pytest.mark.parametrize("case", MOD_ADD_CASES)
+def test_mod_add_kernel_equals_plain(dev, case):
+    """Each form of the additive kernel is one launch (none for an empty
+    output) and equals its plain version bit for bit, on the card and on
+    the CPU."""
+    (fn, plain), args, vec = _mod_add_case(case, dev)
+    if vec is not None:
+        pl = _mod_add_plan(fn, args)
+        assert pl.vec == vec and pl.threads == mod_add_kernel.THREADS
+    mod_add_kernel.STATS.reset()
+    got = fn(*args)
+    assert mod_add_kernel.STATS.launches == (0 if case == "empty" else 1)
+    assert mod_add_kernel.STATS.plain_calls == 0
+    want = plain(*args)
+    assert got.shape == want.shape and got.dtype == torch.int64
+    assert torch.equal(got, want)
+    cpu = [t.cpu() if torch.is_tensor(t) else t for t in args]
+    assert torch.equal(got.cpu(), plain(*cpu))
+
+
+def test_mod_add_kernel_rejects_bad_input(dev):
+    mods = boot_params(10).moduli[:2]
+    q = mm.limb_tables(mods, dev)[0]
+    a = torch.zeros(2, 1024, dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):                     # not int64
+        mm.add_mod(a.int(), a, q)
+    with pytest.raises(TypeError):                     # mixed devices
+        mm.sub_mod(a, a.cpu(), q)
+    with pytest.raises(TypeError):
+        mm.centred_sub(a, a[:1], 1, q.cpu(), q)
+    with pytest.raises(TypeError):
+        mm.sum_mod(torch.stack([a, a]), q.int())
+    with pytest.raises(ValueError):                    # q varies along a row
+        mm.neg_mod(a, a)
+    with pytest.raises(ValueError):                    # the last axis
+        mod_add_kernel.sum_mod_cuda(a, q, -1)
 
 
 def test_span_holds_its_kernel_on_the_profilers_clock(dev):
@@ -616,7 +760,7 @@ def test_mul_ct_on_card_equals_cpu(dev, contexts):
     want = cpu.rescale(cpu.mul_ct(a, b))
     _share_keys(cpu, card)
     stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV,
-             rns_kernel.STATS)
+             rns_kernel.STATS, mod_add_kernel.STATS)
     before = [(s.launches, s.plain_calls) for s in stats]
     got = card.rescale(card.mul_ct(_to_card(a, dev), _to_card(b, dev)))
     for s, (launches, plain) in zip(stats, before):
@@ -684,12 +828,14 @@ def test_bootstrap_on_card_equals_cpu(dev, contexts):
     mid, none = b_cpu.ctos(ct)
     want = b_cpu.stoc(mid, None)
     _share_keys(cpu, card)
-    stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV)
+    stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV,
+             mod_add_kernel.STATS)
     before = [(s.launches, s.plain_calls) for s in stats]
     got_mid, got_none = b_card.ctos(_to_card(ct, dev))
     got = b_card.stoc(got_mid, None)
     for s, (launches, plain) in zip(stats, before):
         assert s.launches > launches
+    assert mod_add_kernel.STATS.plain_calls == before[-1][1]
     assert none is None and got_none is None
     _same_ct(got_mid, mid)
     _same_ct(got, want)
@@ -992,7 +1138,7 @@ def test_prep_ker_batched_on_card(dev, geom, monkeypatch):
 def _kernel_moves(fn):
     """fn() and the launches, by rows, it counted on the main kernels."""
     stats = (mont_kernel.STATS, ntt_kernel.STATS_FWD, ntt_kernel.STATS_INV,
-             rns_kernel.STATS)
+             rns_kernel.STATS, mod_add_kernel.STATS)
     before = [(s.launches, dict(s.by_rows)) for s in stats]
     out = fn()
     return out, [(s.name, s.launches - n,
@@ -1054,6 +1200,28 @@ def test_eval_mod_and_relu_graphs_replay_eager(dev, graph_ctx, ls):
     for got, w in zip(relu_got, relu_want):
         _same_card(got, w)
     _same_card(second, want[1])                   # after the ReLU's replays
+
+
+def test_eval_mod_graph_replays_the_mod_add_kernel(dev, graph_ctx):
+    """EvalMod's graph holds the additive kernel: a replay credits
+    ``kernel.mod_add.launches`` with the eager call's launches, by rows,
+    calls no plain version, and equals the eager body bit for bit."""
+    ctx, btps, cts = graph_ctx
+    btp = btps[0]
+    want = btp._eval_mod_body(cts[2])
+    btp._eval_mod(cts[0])                         # captured here or earlier
+    _, eager = _kernel_moves(lambda: btp._eval_mod_body(cts[1]))
+    before = tracing.counters()
+    got, replayed = _kernel_moves(lambda: btp._eval_mod(cts[2]))
+    after = tracing.counters()
+    assert after.get("graph.replays", 0) - before.get("graph.replays", 0) == 1
+    assert replayed == eager
+    (launches,) = [n for name, n, _ in replayed if name == "mod_add"]
+    assert launches > 0
+    key = "kernel.mod_add."
+    assert after[key + "launches"] - before[key + "launches"] == launches
+    assert after[key + "plain_calls"] == before[key + "plain_calls"]
+    _same_card(got, want)
 
 
 def test_graphs_add_under_32_mib(dev):

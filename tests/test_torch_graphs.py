@@ -203,6 +203,44 @@ def test_first_call_captures_later_calls_replay(tiny, monkeypatch):
     assert not cache.graphs
 
 
+def test_a_starved_key_cache_keeps_the_call_eager(tiny, monkeypatch):
+    """Where the key cache cannot hold the keys of one call, the first
+    call's eager run sees a key it read evicted: the call is never
+    captured (a capture would make that key again inside the graph), and
+    its later calls run eagerly.  With room for the keys it captures."""
+    def record(graph, pool, step):
+        graph.step = step
+        return step()
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(graphs, "_record", record)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    _, ct = tiny
+    p = tiny_params(9, 3)
+    starved = CkksContext(p, "cpu", seed=3, key_cache_gib=1e-9,
+                          key_expand_gib=0.0)
+    roomy = CkksContext(p, "cpu", seed=3)
+
+    def body_of(ctx):
+        # two keys: relinearisation, then a rotation's
+        return lambda c: ctx.rotate(ctx.rescale(ctx.mul_ct(c, c)), 1)
+
+    for ctx, captured in ((starved, False), (roomy, True)):
+        cache = graphs.GraphCache(True, ctx._swk_cache)
+        cache.serves = lambda c: True
+        monkeypatch.setattr(ctx, "_graphs", cache)
+        body = body_of(ctx)
+        before = tracing.counters()
+        for _ in range(2):
+            got = cache.run(("sq_rot",), ct, body)
+            want = body(ct)
+            assert torch.equal(got.c0, want.c0) and torch.equal(got.c1, want.c1)
+        assert bool(cache.graphs) == captured
+        assert (("sq_rot",) in cache.eager) != captured
+        assert _moved(before, "graph.captures") == int(captured)
+        assert _moved(before, "graph.eager") == (1 if captured else 2)
+    assert starved._swk_cache._evict_n > 0 and roomy._swk_cache._evict_n == 0
+
+
 def test_family_eviction_drops_graphs(tiny, monkeypatch):
     """A bootstrapper the family evicts takes its graphs with it."""
     class Stub:

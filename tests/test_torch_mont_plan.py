@@ -17,6 +17,7 @@ import torch
 from optimal_conv_tpu_torch.ckks.params import boot_params
 from optimal_conv_tpu_torch.core import modmath as mm
 from optimal_conv_tpu_torch.core import mont_kernel as mk
+from optimal_conv_tpu_torch.core import rowgeom
 
 # The suite runs in several pytest workers at once; PyTorch's intra-op
 # threads on top of them oversubscribe the cores, so each worker keeps one.
@@ -258,6 +259,28 @@ def test_more_row_dims_than_the_kernel_indexes_collapse():
     merged = _plan(*full, q, qinv, None)
     assert not merged.collapse and merged.dims == ((64, (2 * N, 2 * N, 0, 0, 0)),
                                                    (2, (N, N, 1, 1, 0)))
+    # the wrapper's rowgeom.materialise expands q and qinv too: one row dim
+    again = _plan(*rowgeom.materialise(pl.shape, (a, b, q, qinv)), None)
+    assert not again.collapse and again.dims == ((128, (N, N, 1, 1, 0)),)
+
+
+def test_strided_last_axis_is_copied_alone_or_collapses():
+    """The plan cannot index a row operand strided along the last axis:
+    it collapses, as the additive kernel's does.  The wrapper first copies
+    that operand alone (``rowgeom.rows_contiguous``), the broadcast
+    operands staying in place."""
+    q, qinv, r2, _ = _tables()
+    b = _residues((6, N), 2)
+    strided = _residues((6, 2 * N), 10)[:, ::2]
+    assert _plan(strided, b, q, qinv, None).collapse
+    assert _plan(b, strided, q, qinv, r2).collapse
+    b1 = b[:1]
+    ops = rowgeom.rows_contiguous((strided, b1, q, qinv), 2)
+    assert ops[0].is_contiguous() and torch.equal(ops[0], strided)
+    assert all(x is y for x, y in zip(ops[1:], (b1, q, qinv)))
+    pl = _plan(*ops, None)
+    assert not pl.collapse and pl.vec
+    assert pl.dims == ((6, (N, 0, 1, 1, 0)),)
 
 
 def test_plan_rejects_what_the_kernel_does_not_take():
