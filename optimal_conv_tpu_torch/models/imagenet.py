@@ -26,7 +26,10 @@ head on its result.  The layers and heads are reached through this
 module's global names ``eval_conv_bn_relu`` and ``convops``, so a caller
 can wrap them (to time, check or record each).  Spans
 (``utils/tracing.py``): ``infer_features`` / ``infer_logits`` are the
-root ``image``, ``encrypt_input`` is ``encrypt``, each head ``head``.
+root ``image``, ``encrypt_input`` is ``encrypt``, each head ``head``;
+``ImagenetFinalFastRunner``'s transition is a span ``transition``
+(attributes kind "StrConv" and halves 2) around its two fused-layer
+calls and their sum.
 """
 
 from __future__ import annotations
@@ -294,14 +297,15 @@ class ImagenetFinalFastRunner(_ImagenetRunner):
         # transition: out-channel halves as two plain StrConvs at pos 0/1
         ker = convs[li]
         halves = []
-        for pos in range(2):
-            sl = slice(pos * b1 // 2, (pos + 1) * b1 // 2)
-            halves.append(eval_conv_bn_relu(
-                ctx, self.btps, ct, ker[:, :, :, sl].ravel(), bn_a[li][sl],
-                bn_b[li][sl], 0.0, pow_, 16, 2 * self.kp_wids[1],
-                self.ker_wid, b0, b0, 1, pos, 1, 2, 0, "StrConv",
-                self.str_maps[pos]))
-        ct = ctx.add(halves[0], halves[1])
+        with tracing.span("transition", kind="StrConv", halves=2):
+            for pos in range(2):
+                sl = slice(pos * b1 // 2, (pos + 1) * b1 // 2)
+                halves.append(eval_conv_bn_relu(
+                    ctx, self.btps, ct, ker[:, :, :, sl].ravel(),
+                    bn_a[li][sl], bn_b[li][sl], 0.0, pow_, 16,
+                    2 * self.kp_wids[1], self.ker_wid, b0, b0, 1, pos, 1, 2,
+                    0, "StrConv", self.str_maps[pos]))
+            ct = ctx.add(halves[0], halves[1])
         li += 1
         for _ in range(self.num_blc[1]):
             ct = eval_conv_bn_relu(

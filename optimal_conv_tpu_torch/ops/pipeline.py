@@ -60,7 +60,9 @@ def keep_ctxt(ctx: CkksContext, ct: Ciphertext, mask: np.ndarray) -> Ciphertext:
 
 def _masked_rotate_sum(ctx: CkksContext, ct: Ciphertext,
                        idx: dict[int, np.ndarray], sc: float) -> Ciphertext:
-    """Σ_rot rot(ct ⊙ mask) over the {rotation: mask} table, no rescale."""
+    """Σ_rot rot(ct ⊙ mask) over the {rotation: mask} table, no rescale.
+    The counter ``repack.rotations`` adds the table's rotations."""
+    tracing.count("repack.rotations", len(idx))
     out = None
     for rot, mask in sorted(idx.items()):
         t = ctx.rotate(ctx.mul_plain(ct, _mask_pt(ctx, mask, ct.level, sc)), rot)

@@ -41,7 +41,9 @@ it, ``encode.kernel.pts`` / ``encode.kernel.host_pts``
 (``ops/conv.prep_ker``: kernel plaintexts made by the batched pass on the
 device / one at a time on the host), ``conv.pack.keyswitches``
 (``ops/conv._conv_pack``: the key-switch rows of the conv's pack, C − 1
-a conv of C plaintexts), ``graph.captures`` /
+a conv of C plaintexts), ``repack.rotations``
+(``ops/pipeline._masked_rotate_sum``: the rotations of the masked
+rotate-sum repacks, each stage of a two-stage one), ``graph.captures`` /
 ``graph.replays`` / ``graph.eager`` (``ckks/graphs.py``: the
 bootstrapper's polynomial evaluations captured, replayed, or run with no
 graph).  The recorder serves one thread: the port drives a card from

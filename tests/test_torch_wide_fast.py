@@ -129,6 +129,10 @@ def _convs(kind: str, n: int, cfg: dict) -> list:
         # block 1 full on 16², two transition halves there at norm 1,
         # block 2 on 8² at norm 2, the RMFC head there at norm 1
         return [(16, 1)] * (n0 + 2) + [(8, 2)] * n1 + [(8, 1)]
+    if kind == "final_fast":
+        n0, n1 = cfg["num_blc"]
+        # as the tail, but block 2 full on 8² at norm 1
+        return [(16, 1)] * (n0 + 2) + [(8, 1)] * (n1 + 1)
     n1, n2, n3 = NUM_BLOCKS[cfg["depth"]]
     w0, w1, w2 = cfg["in_wids"]
     rb = cfg["real_batch"]
@@ -155,17 +159,19 @@ def _convs(kind: str, n: int, cfg: dict) -> list:
 
 def test_pack_keyswitches_of_the_benchmark_cells():
     """At logN 16 the image cells' convs run 730 (ResNet-20 sparse), 3831
-    (the tail), 732 (crop_fast) and 2987 (wide 3) key-switch rows an
-    image in their packs."""
+    (the tail), 732 (crop_fast), 2987 (wide 3) and 5367 (the final-fast
+    tail) key-switch rows an image in their packs."""
     cells = {"resnet20_cifar10": "sparse", "imagenet_tail": "tail",
-             "resnet20_cifar10_fast": "fast", "resnet20_wide3_fast": "wide"}
+             "resnet20_cifar10_fast": "fast", "resnet20_wide3_fast": "wide",
+             "imagenet_final_fast": "final_fast"}
     got = {}
     for name, kind in cells.items():
         cfg = common.load_json(common.HERE / "configs" / f"{name}.json")
         n = 1 << cfg["params"]["log_n"]
         got[name] = _pack_keyswitches(n, _convs(kind, n, cfg))
     assert got == {"resnet20_cifar10": 730, "imagenet_tail": 3831,
-                   "resnet20_cifar10_fast": 732, "resnet20_wide3_fast": 2987}
+                   "resnet20_cifar10_fast": 732, "resnet20_wide3_fast": 2987,
+                   "imagenet_final_fast": 5367}
 
 
 MINI_CFG = dict(ker_wid=3, depth=8, in_wids=(16, 8, 4), fc_out=4,
@@ -179,6 +185,7 @@ MINIS = {
     "fast": ("fast", dict(MINI_CFG, real_batch=(1, 2, 4)), 1),
     "sparse": ("sparse", dict(MINI_CFG, real_batch=(1, 2, 4)), 1),
     "tail": ("tail", dict(num_blc=(1, 1)), 4),
+    "final_fast": ("final_fast", dict(num_blc=(1, 1)), 4),
 }
 
 
@@ -195,8 +202,8 @@ def test_pack_counter_and_transition_span_on_a_mini_image(monkeypatch,
     ``collect()``: the counter ``conv.pack.keyswitches`` moved inside the
     ``image`` root by the geometry's Σ (C − 1); a wide runner's image
     holds one ``transition`` span (kind StrConv_odd, halves 2 at wide 3
-    and 1 at wide 2) around that many ``layer`` spans, the others
-    none."""
+    and 1 at wide 2) around that many ``layer`` spans, the final-fast
+    tail's one (kind StrConv, halves 2), the others none."""
     kind, cfg, in_ch = MINIS[name]
     monkeypatch.setattr(tres, "BootstrapperFamily", _Family)
     monkeypatch.setattr(timg, "BootstrapperFamily", _Family)
@@ -205,8 +212,10 @@ def test_pack_counter_and_transition_span_on_a_mini_image(monkeypatch,
         monkeypatch.setattr(pipeline, repack, lambda ctx, ct, *maps: ct)
     rng = np.random.default_rng(3)
     tracing.clear()
-    if kind == "tail":
-        runner = timg.ImagenetTailRunner(mini_ctx, 3, BOOT, cfg["num_blc"])
+    if kind in ("tail", "final_fast"):
+        cls = (timg.ImagenetTailRunner if kind == "tail"
+               else timg.ImagenetFinalFastRunner)
+        runner = cls(mini_ctx, 3, BOOT, cfg["num_blc"])
         b0, b1 = runner.real_batch
         n0, n1 = cfg["num_blc"]
         shapes = [(b0, b0)] * n0 + [(b0, b1)] + [(b1, b1)] * n1
@@ -236,15 +245,15 @@ def test_pack_counter_and_transition_span_on_a_mini_image(monkeypatch,
     assert root["counters"]["conv.pack.keyswitches"] == want
     spans = tracing.tree(recs, root["id"])
     trans = [r for r in spans if r["name"] == "transition"]
-    if kind != "wide":
+    if kind not in ("wide", "final_fast"):
         assert trans == []
         return
-    halves = 2 if cfg["wide"] == 3 else 1
-    assert [r["attrs"] for r in trans] == [dict(kind="StrConv_odd",
-                                                halves=halves)]
+    tkind = "StrConv_odd" if kind == "wide" else "StrConv"
+    halves = 1 if cfg.get("wide") == 2 else 2
+    assert [r["attrs"] for r in trans] == [dict(kind=tkind, halves=halves)]
     inside = [r for r in spans if r["parent"] == trans[0]["id"]]
     assert [(r["name"], r["attrs"]["kind"]) for r in inside] == [
-        ("layer", "StrConv_odd")] * halves
+        ("layer", tkind)] * halves
 
 
 @pytest.mark.slow_e2e
